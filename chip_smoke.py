@@ -1,0 +1,380 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path once on one NVIDIA H100 and check it.
+
+  python3 chip_smoke.py
+
+Phases; any failure exits non-zero, and nothing falls back to the CPU or to
+a kernel's plain version:
+  1. device  the card's name and power limit (nvidia-smi), torch and CUDA
+  2. build   compile every CUDA source of src/repro_torch/kernels/csrc (nvcc,
+             sm_90a, one process per source, all at once)
+  3. kernels each kernel against its plain version on the card, on the same
+             inputs: the serving shapes in bf16 (3e-2) and the f32 sweep of
+             tests/test_kernels.py (2e-5); medians of CUDA-event times
+  4. serve   gemma3-4b at full width, random weights from a seed: batch 4,
+             a 2048-token prompt (past the 1024 window, so the window masks
+             and the local ring cache are live), 32 greedy decode steps;
+             launch counts, finite logits, decode against a full forward;
+             a torch.profiler window over prefill and over decode steps
+Prints the kernels JSON line, the nvidia-smi line, and last
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+# H100 SXM data sheet (dense): bf16 tensor cores, f32 without tensor cores, HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+ARCH, BATCH, PROMPT, STEPS, SEED = "gemma3-4b", 4, 2048, 32, 0
+# decode vs full forward, relative to the largest logit: bf16 rounds every
+# layer's output (2^-9 relative) and decode rounds its scores to bf16 where
+# the kernel keeps f32; over 34 layers that stays within a few percent. A
+# wrong cache slot or mask changes attention outputs wholesale.
+DECODE_RTOL = 0.1
+
+
+def fail(msg):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def cuda_ms(torch, fn, reps=10, warmup=2):
+    """Median milliseconds of fn() on the current stream (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def attention_pairs(Sq, Sk, causal, window):
+    """(q, k) pairs the mask keeps: the work this call's data needs."""
+    n = 0
+    for i in range(Sq):
+        hi = min(Sk, i + 1) if causal else Sk
+        lo = max(0, i - window + 1) if window else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def attention_bound_ms(q, k, causal, window):
+    BH, Sq, hd = q.shape
+    flops = 4 * BH * attention_pairs(Sq, k.shape[1], causal, window) * hd
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()   # q, k, v in; o out
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]]
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_device(torch):
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return card
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    try:
+        info = build.build_all()
+    except RuntimeError as e:
+        fail(str(e))
+    for name, item in info.items():
+        usage = [ln.split("info    : ")[-1] for ln in item["log"].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log(f"[build] {name}: {item['seconds']:.1f}s nvcc -> {item['path'].name}; "
+            + "; ".join(sorted(set(usage))))
+    log(f"[build] all sources in {time.perf_counter() - t0:.1f}s")
+
+
+def phase_kernels(torch):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def inputs(BKV, G, S, hd, dtype):
+        mk = lambda n: torch.randn(n, S, hd, generator=g, device="cuda").to(dtype)  # noqa: E731
+        return mk(BKV * G), mk(BKV), mk(BKV)
+
+    def check(q, k, v, causal, window, tol, what):
+        o = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_oracle(q.float(), k.float(), v.float(),
+                                          causal=causal, window=window)
+        err = (o.float() - want).abs().max().item()
+        if not math.isfinite(err) or err > tol:
+            fail(f"flash_attention {what}: max abs err {err:.3g} > {tol}")
+        return err
+
+    # f32 (and bf16) sweep of tests/test_kernels.py: ragged S, non-causal, GQA
+    sweep_err = {"float32": 0.0, "bfloat16": 0.0}
+    for S, causal, window in [(64, True, 0), (96, True, 0), (64, True, 16),
+                              (128, False, 0), (80, True, 24)]:
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+            err = check(*inputs(4, 2, S, 32, dtype), causal, window, tol,
+                        f"S{S} causal={causal} window={window} {dtype}")
+            key = str(dtype).split(".")[-1]
+            sweep_err[key] = max(sweep_err[key], err)
+    for kv in (1, 2, 4):
+        err = check(*inputs(2 * kv, 4 // kv, 64, 16, torch.float32), True, 0,
+                    2e-5, f"GQA kv={kv}")
+        sweep_err["float32"] = max(sweep_err["float32"], err)
+    log(f"[kernels] flash_attention sweep: f32 max err {sweep_err['float32']:.3g} "
+        f"(tol 2e-5), bf16 {sweep_err['bfloat16']:.3g} (tol 3e-2)")
+
+    # the serving shapes: B 4, S 2048, H 8, KV 4, hd 256, bf16; a global layer
+    # (causal) and a local one (causal, window 1024)
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(ARCH)
+    G = cfg.num_heads // cfg.num_kv_heads
+    per = {}
+    for label, window in (("global", 0), ("local", cfg.local_window)):
+        q, k, v = inputs(BATCH * cfg.num_kv_heads, G, PROMPT, cfg.head_dim,
+                         torch.bfloat16)
+        err = check(q, k, v, True, window, 3e-2, f"serving shape {label}")
+        ms = cuda_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True,
+                                                        window=window))
+        plain_ms = cuda_ms(torch, lambda: ref.flash_attention_oracle(
+            q, k, v, causal=True, window=window), reps=5)
+        # yardstick only: one PyTorch call computing the same function
+        q4 = q.view(BATCH, cfg.num_heads, PROMPT, cfg.head_dim)
+        k4 = k.view(BATCH, cfg.num_kv_heads, PROMPT, cfg.head_dim)
+        v4 = v.view(BATCH, cfg.num_kv_heads, PROMPT, cfg.head_dim)
+        if window:
+            pos = torch.arange(PROMPT, device="cuda")
+            d = pos[:, None] - pos[None, :]
+            mask = (d >= 0) & (d < window)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, attn_mask=mask, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, is_causal=True, enable_gqa=True)
+        lib_err = (lib().reshape(q.shape).float()
+                   - flash_attention_fwd(q, k, v, causal=True, window=window).float()
+                   ).abs().max().item()
+        library_ms = cuda_ms(torch, lib)
+        bound_ms, bound_by = attention_bound_ms(q, k, True, window)
+        per[label] = {"window": window, "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_vs_kernel_max_abs_diff": lib_err}
+        log(f"[kernels] flash_attention {label} (window {window}): err {err:.3g}, "
+            f"{ms:.4f} ms (plain {plain_ms:.3f}, SDPA {library_ms:.4f}, "
+            f"bound {bound_ms:.4f} by {bound_by})")
+    n_local = sum(kind == "local" for kind in cfg.layer_kinds)
+    n_global = sum(kind == "global" for kind in cfg.layer_kinds)
+    per_prefill = {key: n_global * per["global"][key] + n_local * per["local"][key]
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:72",
+        "launches": None,                     # filled in from the serve phase
+        "max_abs_err": max(per[x]["max_abs_err"] for x in per),
+        "max_err": max(per[x]["max_abs_err"] for x in per),
+        **per_prefill, "bound_by": "+".join(sorted({per[x]["bound_by"] for x in per})),
+        "times_are": f"per prefill: {n_global} global + {n_local} local launches",
+        "f32_sweep_max_abs_err": sweep_err["float32"],
+        "per_launch": per,
+    }
+
+
+def phase_serve(torch):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import Model
+    from repro_torch.train.serve_step import (make_decode_step,
+                                              make_prefill_step, sample_token)
+
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[serve] {cfg.name}: {n_params / 1e9:.3f}B params (config says "
+        f"{cfg.param_count() / 1e9:.3f}B), seeded init {time.perf_counter() - t0:.1f}s")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device="cuda")
+    cache_len = PROMPT + STEPS
+    prefill = make_prefill_step(model, cache_len)
+    decode = make_decode_step(model)
+
+    def run():
+        """prefill + STEPS greedy decode steps; returns timings and logits."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(prompt)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        launches = flash_attention_fwd.launches
+        finite = torch.isfinite(logits).all()
+        tok = sample_token(logits)
+        toks, dec_logits = [tok], []
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            logits, cache = decode(tok, cache)
+            finite &= torch.isfinite(logits).all()
+            dec_logits.append(logits)
+            tok = sample_token(logits)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        return t_prefill, t_decode, launches, bool(finite), toks, dec_logits
+
+    with torch.inference_mode():
+        run()                                       # warm-up: libraries, allocator
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention_fwd.launches = 0            # the main path's run starts here
+        t_prefill, t_decode, launches, finite, toks, dec_logits = run()
+        total_launches = flash_attention_fwd.launches
+        peak = torch.cuda.max_memory_allocated()
+
+        n_attn = sum(kind in ("global", "local") for kind in cfg.layer_kinds)
+        if launches != n_attn or total_launches != n_attn:
+            fail(f"flash_attention launches: {launches} in prefill, "
+                 f"{total_launches} in all; want {n_attn} (one per attention layer)")
+        if not finite:
+            fail("non-finite logits in prefill or decode")
+        # decode logits at positions 2048 and 2048+STEPS-1 against a full
+        # forward over all tokens up to them (last-position logits of prefill)
+        seq = torch.cat([prompt] + toks, dim=1)
+        checks = {}
+        for step in (0, STEPS - 1):
+            n = PROMPT + step + 1
+            full, _ = model.prefill(seq[:, :n], n)
+            err = (dec_logits[step] - full).abs().max().item()
+            scale = full.abs().max().item()
+            checks[n - 1] = (err, scale)
+            if not err <= DECODE_RTOL * scale:
+                fail(f"decode at position {n - 1} vs full forward: max abs err "
+                     f"{err:.4g} > {DECODE_RTOL} x max |logit| {scale:.4g}")
+    log("[serve] decode vs full forward: " + ", ".join(
+        f"pos {p}: max abs err {e:.4g} (max |logit| {s:.4g})"
+        for p, (e, s) in checks.items()))
+    tok_s = BATCH * STEPS / t_decode
+    log(f"[serve] prefill {BATCH}x{PROMPT}: {t_prefill * 1e3:.2f} ms "
+        f"({BATCH * PROMPT / t_prefill:.0f} tok/s); decode {STEPS} steps: "
+        f"{t_decode * 1e3 / STEPS:.3f} ms/step ({tok_s:.1f} tok/s); "
+        f"flash_attention launches {launches}; peak memory "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes)")
+    log(f"[serve] sample output ids: {torch.cat(toks, 1)[0, :16].tolist()}")
+    with torch.inference_mode():
+        profile_serving(torch, prefill, decode, sample_token, prompt, min(8, STEPS))
+    return launches
+
+
+def _bucket(name):
+    if "flash_fwd_kernel" in name:
+        return "flash_attention"
+    if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
+        return "matmul"
+    return "other"
+
+
+def profile_serving(torch, prefill, decode, sample_token, prompt, steps):
+    """Where the device time goes: torch.profiler over one prefill and over
+    `steps` decode steps; kernel time by bucket, and kernel time over the
+    window's wall time (the device's busy share; the rest is idle)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        buckets, n_ops = {}, 0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            buckets[_bucket(e.key)] = buckets.get(_bucket(e.key), 0.0) + us
+            n_ops += e.count
+        return out, wall, buckets, n_ops
+
+    def decode_steps(cache, tok):
+        for _ in range(steps):
+            logits, cache = decode(tok, cache)
+            tok = sample_token(logits)
+        return cache
+
+    (logits, cache), wall_p, b_p, n_p = window(lambda: prefill(prompt))
+    _, wall_d, b_d, n_d = window(lambda: decode_steps(cache, sample_token(logits)))
+    for what, wall, b, n in (("prefill", wall_p, b_p, n_p),
+                             (f"decode x{steps}", wall_d, b_d, n_d)):
+        busy = sum(b.values()) / 1e3
+        if not busy:
+            log(f"[profile] {what}: device time not measured (the profiler saw no kernels)")
+            continue
+        parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / 1e3 / busy:.1%})"
+                          for k, v in sorted(b.items(), key=lambda kv: -kv[1]))
+        log(f"[profile] {what}: wall {wall * 1e3:.3f} ms, kernels {busy:.3f} ms "
+            f"(busy {busy / (wall * 1e3):.1%}, idle {1 - busy / (wall * 1e3):.1%}), "
+            f"{n} device operations; {parts}")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no GPU found (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: the port's package is missing ({SRC}/repro_torch): "
+              "run from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    card = phase_device(torch)
+    phase_build()
+    kernel = phase_kernels(torch)
+    kernel["launches"] = phase_serve(torch)
+    log(json.dumps({"kernels": [kernel]}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,18 @@
+"""Architecture registry: --arch <id> -> ModelConfig (ported archs only)."""
+from __future__ import annotations
+
+from repro_torch.configs import gemma3_4b
+from repro_torch.configs.base import ModelConfig
+
+_MODULES = {
+    "gemma3-4b": gemma3_4b,
+}
+
+ARCH_NAMES = tuple(_MODULES)
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; available: {ARCH_NAMES}")
+    mod = _MODULES[name]
+    return mod.smoke() if smoke else mod.full()

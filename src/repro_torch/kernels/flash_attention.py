@@ -1,0 +1,81 @@
+"""Flash attention forward on Hopper: wrapper of ``csrc/flash_attention.cu``.
+
+The CUDA kernel replaces the TPU kernel
+``src/repro/kernels/flash_attention.py::flash_attention_tpu`` and computes
+the same function (causal / sliding window / GQA, f32 softmax statistics);
+its source says what bounds it and how it is tiled. Its plain version is
+``kernels/ref.py::flash_attention_oracle``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _library():
+    lib = build.load("flash_attention")
+    fn = lib.flash_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q, k, v):
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention_fwd runs on one CUDA device; got "
+                         f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes must all be float32 or bfloat16; got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"want q (BH,Sq,hd), k/v (BKV,Sk,hd); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    BH, _, hd = q.shape
+    BKV = k.shape[0]
+    if k.shape[2] != hd or BKV == 0 or BH % BKV:
+        raise ValueError(f"q heads {BH} must be a multiple of kv heads {BKV} "
+                         f"and head dims must agree ({hd} vs {k.shape[2]})")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def flash_attention_fwd(q, k, v, *, scale=None, causal=True, window=0):
+    """q (BH,Sq,hd); k/v (BKV,Sk,hd) with BH = BKV*G, on a CUDA device.
+
+    Returns (BH,Sq,hd) in q's dtype. Launches the kernel on the current
+    stream and adds one to ``flash_attention_fwd.launches``."""
+    _check(q, k, v)
+    BH, Sq, hd = q.shape
+    BKV, Sk, _ = k.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    out = torch.empty_like(q)
+    if out.numel() == 0 or Sk == 0:
+        return out.zero_()
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            BH, BKV, Sq, Sk, hd, _DTYPES[q.dtype], int(bool(causal)),
+            int(window), float(scale), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError("flash_attention_fwd launch failed: "
+                           + lib.flash_attention_error_string(err).decode())
+    flash_attention_fwd.launches += 1
+    return out
+
+
+flash_attention_fwd.launches = 0

@@ -1,0 +1,34 @@
+"""Plain PyTorch versions of the port's kernels (the ref.py contract).
+
+They define correctness: the CPU path runs them, and ``chip_smoke.py`` holds
+each CUDA kernel against them on the card. Counterpart of
+``src/repro/kernels/ref.py``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -2.0e38
+
+
+def flash_attention_oracle(q, k, v, *, scale=None, causal=True, window=0):
+    """q (BH, Sq, hd); k/v (BKV, Sk, hd), BH = BKV*G.  Materialized softmax."""
+    BH, Sq, hd = q.shape
+    BKV, Sk, _ = k.shape
+    G = BH // BKV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    kx = k.repeat_interleave(G, dim=0)
+    vx = v.repeat_interleave(G, dim=0)
+    s = torch.einsum("bqh,bsh->bqs", q, kx).float() * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= (qpos - kpos) < window
+    s = s.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bqs,bsh->bqh", w.to(vx.dtype), vx)

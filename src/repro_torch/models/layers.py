@@ -1,0 +1,121 @@
+"""Common layers + the ParamSpec system (counterpart of ``repro/models/layers.py``).
+
+Every parameter is declared once as a ParamSpec (shape, dtype, init) in the
+JAX package's layout; ``ParamTree`` materializes a nested dict of specs into
+an ``nn.Module`` of raw ``nn.Parameter``s with the same nesting, so the
+functional layers below index it as ``p["wq"]`` exactly as the JAX code
+indexes its pytree, and the weight bridge is a 1:1 copy.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"          # normal | zeros | ones
+    scale: float = 1.0            # stddev multiplier for "normal"
+
+    def materialize(self, generator: torch.Generator, device) -> torch.Tensor:
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=self.dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=self.dtype, device=device)
+        if self.init != "normal":
+            raise ValueError(f"unknown init {self.init!r}")
+        # truncated normal on [-2, 2] scaled by scale/sqrt(fan_in), drawn in f32
+        fan_in = self.shape[0] if self.shape else 1
+        std = self.scale / math.sqrt(max(fan_in, 1))
+        x = torch.empty(self.shape, dtype=torch.float32, device=device)
+        nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return (x * std).to(self.dtype)
+
+
+class ParamTree(nn.Module):
+    """A nested dict of ParamSpecs as a module of raw parameters."""
+
+    def __init__(self, specs: dict, generator: torch.Generator, device):
+        super().__init__()
+        for key in sorted(specs):
+            spec = specs[key]
+            if isinstance(spec, ParamSpec):
+                self.register_parameter(key, nn.Parameter(
+                    spec.materialize(generator, device), requires_grad=False))
+            else:
+                self.add_module(key, ParamTree(spec, generator, device))
+
+    def __getitem__(self, key):
+        return getattr(self, key)
+
+
+# ---------------------------------------------------------------------------
+# functional layers
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, scale, eps=1e-6):
+    # variance in f32, elementwise product in the input dtype (as the JAX layer)
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * (1.0 + scale).to(x.dtype)
+
+
+def rms_norm_specs(dim):
+    return {"scale": ParamSpec((dim,), init="zeros")}
+
+
+def soft_cap(x, cap):
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def rope(x, positions, theta):
+    """Rotary embedding.  x: (..., S, H, hd); positions: (..., S)."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., :, None].float() * freq                 # (..., S, half)
+    ang = ang[..., :, None, :]                                    # (..., S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- gated MLP (SwiGLU / GeGLU) ---------------------------------------------
+
+def mlp_specs(d_model, d_ff):
+    return {
+        "wi": ParamSpec((d_model, d_ff)),
+        "wg": ParamSpec((d_model, d_ff)),
+        "wo": ParamSpec((d_ff, d_model)),
+    }
+
+
+def mlp_apply(p, x, act):
+    h = torch.einsum("bsd,df->bsf", x, p["wi"])
+    g = torch.einsum("bsd,df->bsf", x, p["wg"])
+    g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+    return torch.einsum("bsf,fd->bsd", h * g, p["wo"])
+
+
+# -- embedding ---------------------------------------------------------------
+
+def embed_specs(vocab, d_model):
+    return {"table": ParamSpec((vocab, d_model))}
+
+
+def embed_apply(p, tokens, d_model):
+    h = p["table"][tokens]
+    return (h.float() * math.sqrt(d_model)).to(p["table"].dtype)
+
+
+def unembed_apply(table, h, cap=0.0):
+    logits = torch.einsum("bsd,vd->bsv", h, table).float()
+    return soft_cap(logits, cap)

@@ -1,0 +1,195 @@
+"""Model assembly and serving API (counterpart of ``repro/models/model.py``).
+
+Structure: embed -> layers (superblock x repeat + remainder, unrolled into
+one list) -> final norm -> unembed. Each layer is a residual block:
+ln -> attention (global | local) -> ln -> gated MLP.
+
+Parameters keep the JAX package's layouts and nesting; the JAX stack of
+superblock layers (leading ``layers`` axis) becomes one ``ParamTree`` per
+layer, layer r*len(superblock)+i for slot i of repeat r, then the
+remainder. ``bridge.from_jax_params`` maps one onto the other.
+
+API: apply (full-sequence logits), prefill (last-position logits + decode
+cache), init_cache, decode_step (one token), memory_len.
+"""
+from __future__ import annotations
+
+import dataclasses
+import torch
+from torch import nn
+
+from repro_torch.configs.base import CROSS_ATTN, ENC_ATTN, RGLRU, SSD, ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (ParamSpec, ParamTree, embed_apply,
+                                       embed_specs, mlp_apply, mlp_specs,
+                                       rms_norm, rms_norm_specs, unembed_apply)
+
+_NOT_PORTED = {
+    "moe": "MoE (ROADMAP queue 1, item 2)",
+    SSD: "Mamba2 / SSD (ROADMAP queue 1, item 3)",
+    RGLRU: "RecurrentGemma / RG-LRU (ROADMAP queue 1, item 4)",
+    CROSS_ATTN: "cross-attention (ROADMAP queue 1, item 5)",
+    ENC_ATTN: "encoder attention (ROADMAP queue 1, item 5)",
+    "encdec": "encoder-decoder (ROADMAP queue 1, item 5)",
+}
+
+
+@dataclasses.dataclass
+class Ctx:
+    """Per-call context, the counterpart of the JAX package's ``Ctx``. It is
+    empty so far: the port has one attention implementation and no mesh;
+    the sharding hook and remat policy come with the slices that use them."""
+
+
+# ---------------------------------------------------------------------------
+# per-layer specs / apply
+# ---------------------------------------------------------------------------
+
+def _check_ported(cfg: ModelConfig, kind: str):
+    if kind in _NOT_PORTED:
+        raise NotImplementedError(f"{_NOT_PORTED[kind]} is not ported yet")
+    if cfg.num_experts:
+        raise NotImplementedError(f"{_NOT_PORTED['moe']} is not ported yet")
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{_NOT_PORTED['encdec']} is not ported yet")
+
+
+def layer_specs(cfg: ModelConfig, kind: str):
+    _check_ported(cfg, kind)
+    d = cfg.d_model
+    s: dict = {"ln1": rms_norm_specs(d), "attn": attn.attention_specs(cfg)}
+    if cfg.d_ff:
+        s["ln2"] = rms_norm_specs(d)
+        s["mlp"] = mlp_specs(d, cfg.d_ff)
+    return s
+
+
+def apply_layer(p, h, kind, cfg, ctx, positions=None, collect_cache=False,
+                cache_len=0):
+    """Residual block.  Returns (h, cache|None)."""
+    a_in = rms_norm(h, p["ln1"]["scale"], cfg.norm_eps)
+    out, (k, v) = attn.attention_apply(p["attn"], a_in, cfg, ctx, kind,
+                                       positions=positions)
+    cache = None
+    if collect_cache:
+        cache = {"attn": attn.pack_prefill_cache(k, v, kind, cfg, cache_len)}
+    h = h + out
+    if cfg.d_ff:
+        m_in = rms_norm(h, p["ln2"]["scale"], cfg.norm_eps)
+        h = h + mlp_apply(p["mlp"], m_in, cfg.act)
+    return h, cache
+
+
+def apply_layer_decode(p, h, layer_cache, pos, kind, cfg, ctx):
+    """One-token residual block.  h (B,1,D).  Returns (h, layer_cache),
+    the cache updated in place."""
+    a_in = rms_norm(h, p["ln1"]["scale"], cfg.norm_eps)
+    out, _ = attn.attention_decode(p["attn"], a_in, layer_cache["attn"], pos,
+                                   cfg, ctx, kind)
+    h = h + out
+    if cfg.d_ff:
+        m_in = rms_norm(h, p["ln2"]["scale"], cfg.norm_eps)
+        h = h + mlp_apply(p["mlp"], m_in, cfg.act)
+    return h, layer_cache
+
+
+def init_layer_cache_specs(cfg, kind, batch, cache_len):
+    """ParamSpec tree for one layer's decode cache."""
+    _check_ported(cfg, kind)
+    return {"attn": attn.attn_cache_specs(cfg, kind, batch, cache_len)}
+
+
+def _materialize(specs, device):
+    if isinstance(specs, ParamSpec):
+        return specs.materialize(None, device)
+    return {k: _materialize(s, device) for k, s in specs.items()}
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+class Model(nn.Module):
+    """The decoder with its parameters, seeded from ``seed`` on ``device``
+    (``None`` means ``cuda``; the CPU only when asked for). Inference only:
+    parameters do not require grad. ``apply`` shadows ``nn.Module.apply``
+    on purpose, to keep the JAX package's API names."""
+
+    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        g = torch.Generator(device=device).manual_seed(seed)
+        self.embed = ParamTree(embed_specs(cfg.vocab_size, cfg.d_model), g, device)
+        self.final_norm = ParamTree(rms_norm_specs(cfg.d_model), g, device)
+        if not cfg.tie_embeddings:
+            self.unembed = ParamTree(
+                {"table": ParamSpec((cfg.vocab_size, cfg.d_model))}, g, device)
+        self.layers = nn.ModuleList(ParamTree(layer_specs(cfg, kind), g, device)
+                                    for kind in cfg.layer_kinds)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["table"].device
+
+    def _table(self):
+        return (self.embed if self.cfg.tie_embeddings else self.unembed)["table"]
+
+    def _trunk(self, tokens, ctx, collect_cache=False, cache_len=0):
+        """Embed, all layers, final norm: (h (B,S,D), per-layer caches)."""
+        cfg = self.cfg
+        ctx = ctx or Ctx()
+        h = embed_apply(self.embed, tokens, cfg.d_model)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        caches = []
+        for p, kind in zip(self.layers, cfg.layer_kinds):
+            h, c = apply_layer(p, h, kind, cfg, ctx, positions=positions,
+                               collect_cache=collect_cache, cache_len=cache_len)
+            caches.append(c)
+        return rms_norm(h, self.final_norm["scale"], cfg.norm_eps), caches
+
+    # -- full-sequence forward ----------------------------------------------
+    def apply(self, tokens, ctx=None):
+        """tokens (B,S) -> logits (B,S,V) f32."""
+        h, _ = self._trunk(tokens, ctx)
+        return unembed_apply(self._table(), h, self.cfg.logits_soft_cap)
+
+    def forward(self, tokens, ctx=None):
+        return self.apply(tokens, ctx)
+
+    # -- prefill / decode -----------------------------------------------------
+    def prefill(self, tokens, cache_len, ctx=None):
+        """Full forward + packed decode cache.  Returns (last_logits (B,V),
+        cache). Only the last position is unembedded: the same numbers as
+        apply(tokens)[:, -1] without a (B,S,V) buffer."""
+        h, caches = self._trunk(tokens, ctx, collect_cache=True,
+                                cache_len=cache_len)
+        logits = unembed_apply(self._table(), h[:, -1:], self.cfg.logits_soft_cap)
+        return logits[:, 0], {"pos": tokens.shape[1], "layers": caches}
+
+    def init_cache(self, batch, cache_len):
+        return {"pos": 0, "layers": [
+            _materialize(init_layer_cache_specs(self.cfg, kind, batch, cache_len),
+                         self.device)
+            for kind in self.cfg.layer_kinds]}
+
+    def decode_step(self, token, cache, ctx=None):
+        """token (B,1) int; cache from init_cache/prefill, updated in place.
+
+        Returns (logits (B,V), cache with pos advanced by one)."""
+        cfg = self.cfg
+        ctx = ctx or Ctx()
+        pos = cache["pos"]
+        h = embed_apply(self.embed, token, cfg.d_model)
+        for p, kind, c in zip(self.layers, cfg.layer_kinds, cache["layers"]):
+            h, _ = apply_layer_decode(p, h, c, pos, kind, cfg, ctx)
+        h = rms_norm(h, self.final_norm["scale"], cfg.norm_eps)
+        logits = unembed_apply(self._table(), h, cfg.logits_soft_cap)[:, 0]
+        return logits, {"pos": pos + 1, "layers": cache["layers"]}
+
+    def memory_len(self):
+        """Length of the stub frontend memory: 0, since no ported arch has
+        cross-attention (vlm and encoder-decoder archs raise above)."""
+        return 0
+

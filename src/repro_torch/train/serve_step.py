@@ -1,0 +1,56 @@
+"""Serving steps: prefill + batched single-token decode.
+
+Counterpart of ``repro/train/serve_step.py``. PyTorch runs eagerly, so the
+step makers return plain closures where the JAX package returns functions
+to jit.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.model import Ctx, Model
+
+
+def make_prefill_step(model: Model, cache_len: int, ctx: Ctx | None = None):
+    ctx = ctx or Ctx()
+
+    def prefill_step(tokens):
+        return model.prefill(tokens, cache_len, ctx)
+
+    return prefill_step
+
+
+def make_decode_step(model: Model, ctx: Ctx | None = None):
+    ctx = ctx or Ctx()
+
+    def decode_step(token, cache):
+        return model.decode_step(token, cache, ctx)
+
+    return decode_step
+
+
+def sample_token(logits, temperature: float = 0.0, generator=None):
+    """logits (B, V) -> (B, 1) int64. Greedy at temperature 0; otherwise a
+    draw from softmax(logits / temperature) with ``generator`` (required)."""
+    if temperature <= 0.0:
+        return logits.argmax(dim=-1, keepdim=True)
+    if generator is None:
+        raise ValueError("sampling at temperature > 0 needs a torch.Generator")
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)
+
+
+def generate(model: Model, prompt, steps: int, cache_len: int = 0,
+             temperature: float = 0.0, generator=None, ctx: Ctx | None = None):
+    """Greedy/temperature generation: prompt (B,S) -> (B, steps) token ids."""
+    cache_len = cache_len or (prompt.shape[1] + steps)
+    prefill = make_prefill_step(model, cache_len, ctx)
+    decode = make_decode_step(model, ctx)
+    logits, cache = prefill(prompt)
+    tok = sample_token(logits, temperature, generator)
+    toks = [tok]
+    for _ in range(steps - 1):
+        logits, cache = decode(tok, cache)
+        tok = sample_token(logits, temperature, generator)
+        toks.append(tok)
+    return torch.cat(toks, dim=1)

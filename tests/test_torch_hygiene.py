@@ -1,0 +1,54 @@
+"""The port stands alone: no JAX and nothing of the JAX package in
+src/repro_torch/ or chip_smoke.py, and no library attention call in the port."""
+import ast
+import os
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+ALL_FILES = PORT_FILES + [ROOT / "chip_smoke.py"]
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_port_files_found():
+    assert len(PORT_FILES) >= 10
+    assert (ROOT / "chip_smoke.py").exists()
+
+
+@pytest.mark.parametrize("path", ALL_FILES, ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_repro_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [n for n in _imports(tree) if _forbidden(n)]
+    assert not bad, f"{path}: imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_sdpa_in_port(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+    names |= {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    names |= {a.name.split(".")[-1] for n in ast.walk(tree)
+              if isinstance(n, (ast.Import, ast.ImportFrom)) for a in n.names}
+    assert "scaled_dot_product_attention" not in names, path
+
+
+def test_forbidden_rule_catches_jax_and_repro():
+    tree = ast.parse("import jax\nfrom repro.models import x\n"
+                     "import repro_torch.models\nfrom jax.numpy import y\n")
+    assert [n for n in _imports(tree) if _forbidden(n)] == \
+        ["jax", "repro.models", "jax.numpy"]

@@ -1,0 +1,127 @@
+"""The port's flash attention (plain version on CPU tensors) against the JAX
+package's Pallas kernel in interpret mode and its oracle.
+
+Tolerances are those of tests/test_kernels.py: f32 2e-5 (summation order
+only), bf16 3e-2 (bf16 rounding of scores, probabilities and output).
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops, ref as jref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+def _inputs(seed, B, S, KV, G, hd):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, S, KV, G, hd).astype(np.float32),
+            rng.randn(B, S, KV, hd).astype(np.float32),
+            rng.randn(B, S, KV, hd).astype(np.float32))
+
+
+def _jax_oracle(q, k, v, causal, window):
+    """JAX ref.flash_attention_oracle in the kernel layout, back to model layout."""
+    B, S, KV, G, hd = q.shape
+    qf = np.moveaxis(q, 1, 3).reshape(B * KV * G, S, hd)
+    kf = np.moveaxis(k, 1, 2).reshape(B * KV, S, hd)
+    vf = np.moveaxis(v, 1, 2).reshape(B * KV, S, hd)
+    o = jref.flash_attention_oracle(jnp.asarray(qf), jnp.asarray(kf),
+                                    jnp.asarray(vf), causal=causal, window=window)
+    return np.moveaxis(np.asarray(o, np.float32).reshape(B, KV, G, S, hd), 3, 1)
+
+
+@pytest.mark.parametrize("S,causal,window", [
+    (64, True, 0), (96, True, 0), (64, True, 16), (128, False, 0),
+    (80, True, 24),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_sweep(S, causal, window, dtype):
+    q, k, v = _inputs(0, 2, S, 2, 2, 32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    # same values in both frameworks: round through the working dtype once
+    qj, kj, vj = (jnp.asarray(x, jdt) for x in (q, k, v))
+    qt, kt, vt = (torch.from_numpy(np.array(x.astype(jnp.float32))).to(tdt)
+                  for x in (qj, kj, vj))
+    o = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert o.dtype == tdt and o.shape == qt.shape
+    o = o.float().numpy()
+    oj = jops.flash_attention(qj, kj, vj, causal=causal, window=window,
+                              interpret=True, block_q=32, block_k=32)
+    atol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(o, np.asarray(oj, np.float32), atol=atol)
+    oref = _jax_oracle(*(np.asarray(x, np.float32) for x in (qj, kj, vj)),
+                       causal, window)
+    np.testing.assert_allclose(o, oref, atol=atol)
+
+
+@pytest.mark.parametrize("mqa_kv", [1, 2, 4])
+def test_flash_attention_gqa_ratios(mqa_kv):
+    q, k, v = _inputs(1, 2, 64, mqa_kv, 4 // mqa_kv, 16)
+    o = ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                            causal=True).numpy()
+    oj = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=True, interpret=True, block_q=32,
+                              block_k=32)
+    np.testing.assert_allclose(o, np.asarray(oj), atol=2e-5)
+    np.testing.assert_allclose(o, _jax_oracle(q, k, v, True, 0), atol=2e-5)
+
+
+def test_oracle_matches_jax_oracle_kernel_layout():
+    rng = np.random.RandomState(2)
+    q = rng.randn(8, 40, 16).astype(np.float32)
+    k = rng.randn(4, 40, 16).astype(np.float32)
+    v = rng.randn(4, 40, 16).astype(np.float32)
+    o = ref.flash_attention_oracle(*(torch.from_numpy(x) for x in (q, k, v)),
+                                   causal=True, window=8, scale=0.3)
+    oj = jref.flash_attention_oracle(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=True, window=8,
+                                     scale=0.3)
+    np.testing.assert_allclose(o.numpy(), np.asarray(oj), atol=2e-5)
+
+
+def test_cpu_path_counts_no_launch():
+    before = flash_attention_fwd.launches
+    q, k, v = _inputs(3, 1, 16, 1, 2, 16)
+    ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    assert flash_attention_fwd.launches == before
+
+
+def test_kernel_on_cpu_tensor_raises():
+    x = torch.zeros(2, 16, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd(x, x, x)
+
+
+def test_ops_rejects_other_devices():
+    x = torch.zeros(1, 4, 1, 1, 16, device="meta")
+    kv = torch.zeros(1, 4, 1, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.flash_attention(x, kv, kv)
+
+
+def test_kernel_modules_import_without_nvcc(tmp_path):
+    env = dict(os.environ, PATH=str(tmp_path), PYTHONPATH=SRC)
+    code = ("import repro_torch.kernels.ops, repro_torch.kernels.flash_attention\n"
+            "from repro_torch.kernels import build\n"
+            "try:\n    build.nvcc()\nexcept RuntimeError as e:\n    print('no nvcc:', e)\n")
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    if not os.path.exists("/usr/local/cuda/bin/nvcc"):
+        assert "no nvcc:" in r.stdout
+
+
+def test_library_path_tracks_source_and_flags():
+    p = build.library_path("flash_attention")
+    assert p.parent == build.BUILD_DIR and p.name.startswith("flash_attention-")
+    assert p == build.library_path("flash_attention")

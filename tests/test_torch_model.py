@@ -1,0 +1,247 @@
+"""The port's gemma3-4b serving slice against the JAX package (smoke config).
+
+Weights come from JAX ``Model.init`` through ``bridge.from_jax_params``;
+tokens from a numpy seed. The JAX side reaches its flash kernel in interpret
+mode (``Ctx(attn_impl="interpret")``).
+
+Tolerances, with their reasons:
+  * f32 apply / prefill logits: 5e-5 absolute (f32 summation order only;
+    logits are O(1)).
+  * f32 decode logits: 2e-3 absolute. Both packages keep the decode cache in
+    bf16 and round decode's softmax weights to bf16, so a value on a bf16
+    rounding boundary can land one bf16 ulp (at most 2^-7 relative) apart.
+  * bf16 logits: 0.3, the bound tests/test_models.py uses between two
+    attention implementations in bf16.
+  * the port's own prefill/decode contracts: those of tests/test_models.py.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs.base import ParallelConfig  # noqa: E402
+from repro.configs.registry import get_config as jax_config  # noqa: E402
+from repro.models import Ctx as JCtx, build_model as jax_build  # noqa: E402
+from repro.train.serve_step import generate as jax_generate  # noqa: E402
+from repro_torch.bridge import from_jax_cache, from_jax_params  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.train.serve_step import generate  # noqa: E402
+
+S, N_DEC, CACHE_LEN = 48, 8, 64           # S > local window 32: the ring is live
+JINT = JCtx(attn_impl="interpret")
+
+
+def _np_tree(tree, dtype=None):
+    return jax.tree_util.tree_map(
+        lambda x: np.asarray(x if dtype is None else x.astype(dtype)), tree)
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    jcfg = jax_config("gemma3-4b", smoke=True)
+    jm = jax_build(jcfg)
+    params = jm.init(jax.random.PRNGKey(0))
+    tokens = np.random.RandomState(1).randint(0, jcfg.vocab_size, (2, S + N_DEC))
+    return jcfg, jm, params, tokens
+
+
+def _port(params, dtype):
+    cfg = get_config("gemma3-4b", smoke=True)
+    m = Model(cfg, device="cpu")
+    m.load_state_dict(from_jax_params(_np_tree(params, dtype), cfg, device="cpu"),
+                      strict=True, assign=True)
+    return m
+
+
+def _run_jax(jm, params, tokens):
+    """apply over S tokens, prefill, then N_DEC decode steps: logits of each."""
+    out = {"apply": jm.apply(params, jnp.asarray(tokens[:, :S]), JINT)[0]}
+    out["prefill"], cache = jm.prefill(params, jnp.asarray(tokens[:, :S]), JINT,
+                                       CACHE_LEN)
+    out["cache"] = _np_tree(cache)
+    for i in range(N_DEC):
+        out[f"decode{i}"], cache = jm.decode_step(
+            params, jnp.asarray(tokens[:, S + i:S + i + 1]), cache, JINT)
+    return {k: (v if k == "cache" else np.asarray(v, np.float32))
+            for k, v in out.items()}
+
+
+def _run_port(m, tokens):
+    t = torch.from_numpy(tokens)
+    with torch.inference_mode():
+        out = {"apply": m.apply(t[:, :S])}
+        out["prefill"], cache = m.prefill(t[:, :S], CACHE_LEN)
+        out["cache"] = cache
+        for i in range(N_DEC):
+            out[f"decode{i}"], cache = m.decode_step(t[:, S + i:S + i + 1], cache)
+    return {k: (v if k == "cache" else v.float().numpy()) for k, v in out.items()}
+
+
+@pytest.fixture(scope="module")
+def f32_runs(jax_side):
+    jcfg, jm, params, tokens = jax_side
+    p32 = jax.tree_util.tree_map(lambda x: x.astype(jnp.float32), params)
+    return _run_jax(jm, p32, tokens), _run_port(_port(params, np.float32), tokens)
+
+
+# ---------------------------------------------------------------------------
+# bridge
+# ---------------------------------------------------------------------------
+
+def test_bridge_maps_every_leaf_once_bit_exact(jax_side):
+    jcfg, _, params, _ = jax_side
+    m = _port(params, None)
+    state = m.state_dict()
+    leaves = jax.tree_util.tree_flatten_with_path(params)[0]
+    n_sb = sum(1 for path, _ in leaves if "'sb'" in jax.tree_util.keystr(path))
+    assert len(state) == len(leaves) - n_sb + n_sb * jcfg.sb_repeat
+    assert sum(t.numel() for t in state.values()) == sum(x.size for _, x in leaves)
+    nsb = len(jcfg.superblock)
+    for path, leaf in leaves:
+        keys = [k.key for k in path]
+        bits = np.asarray(leaf).view(np.uint16)
+        if keys[:2] == ["blocks", "sb"]:
+            i = int(keys[2][len("slot"):])
+            pairs = [(f"layers.{r * nsb + i}." + ".".join(keys[3:]), bits[r])
+                     for r in range(jcfg.sb_repeat)]
+        elif keys[0] == "blocks":
+            j = int(keys[1][len("rem"):])
+            pairs = [(f"layers.{nsb * jcfg.sb_repeat + j}." + ".".join(keys[2:]),
+                      bits)]
+        else:
+            pairs = [(".".join(keys), bits)]
+        for name, want in pairs:
+            t = state[name]
+            assert t.dtype == torch.bfloat16
+            np.testing.assert_array_equal(t.view(torch.int16).numpy().view(np.uint16),
+                                          want, err_msg=name)
+
+
+def test_prefill_cache_matches_jax_stacked_cache(jax_side, f32_runs):
+    """JAX stacks the superblock's caches along a layers axis; the port keeps
+    one per layer. The bridged JAX prefill cache equals the port's, up to one
+    bf16 ulp where an f32 key/value sits on a rounding boundary."""
+    jcfg, _, params, tokens = jax_side
+    jax_run, _ = f32_runs
+    cfg = get_config("gemma3-4b", smoke=True)
+    want = from_jax_cache(jax_run["cache"], cfg, device="cpu")
+    with torch.inference_mode():
+        _, got = _port(params, np.float32).prefill(torch.from_numpy(tokens[:, :S]),
+                                                   CACHE_LEN)
+    assert want["pos"] == got["pos"] == S
+    assert len(want["layers"]) == len(got["layers"]) == jcfg.num_layers
+    # the ring of a local layer (32 slots) and the full cache of the global one
+    assert [c["attn"]["k"].shape[1] for c in got["layers"]] == [32, 32, CACHE_LEN, 32]
+    for n, (w, g) in enumerate(zip(want["layers"], got["layers"])):
+        for name in ("k", "v"):
+            assert g["attn"][name].dtype == w["attn"][name].dtype == torch.bfloat16
+            np.testing.assert_allclose(g["attn"][name].float().numpy(),
+                                       w["attn"][name].float().numpy(),
+                                       rtol=2.0 ** -7, atol=1e-6,
+                                       err_msg=f"layer {n} {name}")
+
+
+def test_bridge_rejects_wrong_stack_depth(jax_side):
+    _, _, params, _ = jax_side
+    cfg = get_config("gemma3-4b", smoke=True).replace(
+        num_layers=7, sb_repeat=2)
+    with pytest.raises(ValueError, match="sb_repeat"):
+        from_jax_params(_np_tree(params), cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# whole slice against JAX
+# ---------------------------------------------------------------------------
+
+def test_f32_apply_and_prefill_match_jax(f32_runs):
+    jax_run, port_run = f32_runs
+    np.testing.assert_allclose(port_run["apply"], jax_run["apply"], atol=5e-5)
+    np.testing.assert_allclose(port_run["prefill"], jax_run["prefill"], atol=5e-5)
+
+
+def test_f32_decode_steps_match_jax(f32_runs):
+    jax_run, port_run = f32_runs
+    for i in range(N_DEC):
+        np.testing.assert_allclose(port_run[f"decode{i}"], jax_run[f"decode{i}"],
+                                   atol=2e-3, err_msg=f"decode step {i}")
+
+
+def test_f32_greedy_tokens_identical(jax_side):
+    jcfg, jm, params, tokens = jax_side
+    p32 = jax.tree_util.tree_map(lambda x: x.astype(jnp.float32), params)
+    want = jax_generate(jm, p32, jnp.asarray(tokens[:, :S]), N_DEC,
+                        ParallelConfig(attn_impl="interpret"))
+    got = generate(_port(params, np.float32), torch.from_numpy(tokens[:, :S]),
+                   N_DEC)
+    assert got.shape == (2, N_DEC)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_bf16_logits_match_jax(jax_side):
+    jcfg, jm, params, tokens = jax_side
+    jax_run = _run_jax(jm, params, tokens)
+    port_run = _run_port(_port(params, None), tokens)
+    for key in ["apply", "prefill"] + [f"decode{i}" for i in range(N_DEC)]:
+        err = np.abs(port_run[key] - jax_run[key]).max()
+        assert err < 0.3, f"{key}: {err}"
+
+
+# ---------------------------------------------------------------------------
+# the port's own serving contracts (tests/test_models.py)
+# ---------------------------------------------------------------------------
+
+def test_prefill_and_decode_match_forward():
+    cfg = get_config("gemma3-4b", smoke=True)
+    m = Model(cfg, device="cpu", seed=0)
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, S + N_DEC), generator=g)
+    with torch.inference_mode():
+        full = m.apply(tokens)
+        last, cache = m.prefill(tokens[:, :S], CACHE_LEN)
+        np.testing.assert_allclose(last.numpy(), full[:, S - 1].numpy(),
+                                   atol=1e-3, rtol=1e-2)
+        for i in range(N_DEC):
+            dl, cache = m.decode_step(tokens[:, S + i:S + i + 1], cache)
+            err = float((dl - full[:, S + i]).abs().max())
+            assert err < (0.15 if i == 0 else 0.2), f"step {i}: {err}"
+    assert cache["pos"] == S + N_DEC
+
+
+@pytest.mark.parametrize("change", [
+    {"num_experts": 4, "experts_per_token": 2},
+    {"superblock": ("ssd",), "sb_repeat": 4, "remainder": ()},
+    {"superblock": ("rglru",), "sb_repeat": 4, "remainder": ()},
+    {"superblock": ("local", "cross"), "sb_repeat": 2, "remainder": ()},
+    {"encoder_layers": 2},
+])
+def test_unported_layers_raise(change):
+    cfg = get_config("gemma3-4b", smoke=True).replace(**change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(cfg, device="cpu")
+
+
+def test_registry_lists_ported_archs():
+    assert get_config("gemma3-4b").param_count() == \
+        jax_config("gemma3-4b").param_count()
+    with pytest.raises(KeyError, match="gemma3-4b"):
+        get_config("qwen3-8b")
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_config_copy_matches_jax(smoke):
+    """The port's copy of the config holds every field with the same value."""
+    assert dataclasses.asdict(get_config("gemma3-4b", smoke=smoke)) == \
+        dataclasses.asdict(jax_config("gemma3-4b", smoke=smoke))
+    with pytest.raises(ValueError, match="layer pattern"):
+        get_config("gemma3-4b", smoke=smoke).replace(num_layers=35)
+
+
+def test_memory_len_matches_jax(jax_side):
+    jcfg, jm, _, _ = jax_side
+    assert Model(get_config("gemma3-4b", smoke=True), device="cpu").memory_len() \
+        == jm.memory_len() == 0
