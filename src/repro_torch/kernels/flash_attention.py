@@ -31,7 +31,21 @@ def _library():
     return lib
 
 
-def _check(q, k, v):
+def rows_without_keys(Sq, Sk, causal, window):
+    """True when some query row of a (Sq, Sk) call would see no valid key.
+
+    The mask keeps key kpos for query qpos when kpos < Sk, kpos <= qpos
+    (causal) and qpos - kpos < window (window > 0). Without a window every
+    row keeps key 0, so only a window empties a row: the last row,
+    qpos Sq - 1, keeps nothing once Sq - window >= Sk. There the kernel
+    writes 0 where the plain version returns the mean of v, so the wrapper
+    refuses the call. (Sk == 0 empties every row.)"""
+    if Sq <= 0:
+        return False
+    return Sk <= 0 or (window > 0 and Sq >= Sk + window)
+
+
+def _check(q, k, v, causal, window):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_fwd runs on one CUDA device; got "
                          f"q on {q.device}, k on {k.device}, v on {v.device}")
@@ -51,6 +65,9 @@ def _check(q, k, v):
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if rows_without_keys(q.shape[1], k.shape[1], causal, window):
+        raise ValueError(f"Sq {q.shape[1]}, Sk {k.shape[1]}, window {window}: "
+                         "some query rows see no valid key")
 
 
 def flash_attention_fwd(q, k, v, *, scale=None, causal=True, window=0):
@@ -58,13 +75,13 @@ def flash_attention_fwd(q, k, v, *, scale=None, causal=True, window=0):
 
     Returns (BH,Sq,hd) in q's dtype. Launches the kernel on the current
     stream and adds one to ``flash_attention_fwd.launches``."""
-    _check(q, k, v)
+    _check(q, k, v, causal, window)
     BH, Sq, hd = q.shape
     BKV, Sk, _ = k.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
-    if out.numel() == 0 or Sk == 0:
-        return out.zero_()
+    if out.numel() == 0:
+        return out
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.ssd import ssd_fwd
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
@@ -25,3 +26,16 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     o = fn(qf, kf, vf, scale=scale, causal=causal, window=window)
     return o.reshape(B, KV, G, S, hd).movedim(3, 1)
+
+
+def ssd(x, dt, A, B, C, *, chunk=256):
+    """Mamba2 SSD: x (b,s,h,p); dt (b,s,h); A (h,); B,C (b,s,n) -> (y, S_final).
+
+    Everything goes to float32 first, as the TPU kernel does; ``chunk``
+    only shapes the CUDA kernel's work (the plain version is sequential)."""
+    x, dt, A, B, C = (t.float().contiguous() for t in (x, dt, A, B, C))
+    if x.device.type == "cuda":
+        return ssd_fwd(x, dt, A, B, C, chunk=chunk)
+    if x.device.type == "cpu":
+        return ref.ssd_oracle(x, dt, A, B, C)
+    raise ValueError(f"ssd: no kernel for device {x.device}")

@@ -32,3 +32,22 @@ def flash_attention_oracle(q, k, v, *, scale=None, causal=True, window=0):
     s = s.masked_fill(~mask, NEG_INF)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bqs,bsh->bqh", w.to(vx.dtype), vx)
+
+
+def ssd_oracle(x, dt, A, B, C):
+    """Fully sequential SSD recurrence (the definition), in float32.
+
+    x (b,s,h,p); dt (b,s,h); A (h,); B,C (b,s,n).
+    Returns (y (b,s,h,p), S_final (b,h,n,p))."""
+    x, dt, A, B, C = (t.float() for t in (x, dt, A, B, C))
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    S = torch.zeros(b, h, n, p, dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt[:, t] * A[None, :])                        # (b,h)
+        dBx = torch.einsum("bn,bhp->bhnp", B[:, t], x[:, t]) * dt[:, t, :, None, None]
+        S = S * decay[:, :, None, None] + dBx
+        ys.append(torch.einsum("bn,bhnp->bhp", C[:, t], S))
+    y = torch.stack(ys, dim=1) if ys else x.new_zeros(b, 0, h, p)
+    return y, S

@@ -2,7 +2,8 @@
 
 Structure: embed -> layers (superblock x repeat + remainder, unrolled into
 one list) -> final norm -> unembed. Each layer is a residual block:
-ln -> attention (global | local) -> ln -> gated MLP.
+ln -> mixer (attention global | local, or the Mamba2 SSD block)
+[-> ln -> gated MLP, when d_ff > 0].
 
 Parameters keep the JAX package's layouts and nesting; the JAX stack of
 superblock layers (leading ``layers`` axis) becomes one ``ParamTree`` per
@@ -21,24 +22,24 @@ from torch import nn
 from repro_torch.configs.base import CROSS_ATTN, ENC_ATTN, RGLRU, SSD, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (ParamSpec, ParamTree, embed_apply,
                                        embed_specs, mlp_apply, mlp_specs,
                                        rms_norm, rms_norm_specs, unembed_apply)
 
 _NOT_PORTED = {
-    "moe": "MoE (ROADMAP queue 1, item 2)",
-    SSD: "Mamba2 / SSD (ROADMAP queue 1, item 3)",
-    RGLRU: "RecurrentGemma / RG-LRU (ROADMAP queue 1, item 4)",
-    CROSS_ATTN: "cross-attention (ROADMAP queue 1, item 5)",
-    ENC_ATTN: "encoder attention (ROADMAP queue 1, item 5)",
-    "encdec": "encoder-decoder (ROADMAP queue 1, item 5)",
+    "moe": "MoE (ROADMAP queue 1, item 3)",
+    RGLRU: "RecurrentGemma / RG-LRU (ROADMAP queue 1, item 1)",
+    CROSS_ATTN: "cross-attention (ROADMAP queue 1, item 4)",
+    ENC_ATTN: "encoder attention (ROADMAP queue 1, item 4)",
+    "encdec": "encoder-decoder (ROADMAP queue 1, item 4)",
 }
 
 
 @dataclasses.dataclass
 class Ctx:
     """Per-call context, the counterpart of the JAX package's ``Ctx``. It is
-    empty so far: the port has one attention implementation and no mesh;
+    empty so far: the port has one implementation of each mixer and no mesh;
     the sharding hook and remat policy come with the slices that use them."""
 
 
@@ -58,7 +59,11 @@ def _check_ported(cfg: ModelConfig, kind: str):
 def layer_specs(cfg: ModelConfig, kind: str):
     _check_ported(cfg, kind)
     d = cfg.d_model
-    s: dict = {"ln1": rms_norm_specs(d), "attn": attn.attention_specs(cfg)}
+    s: dict = {"ln1": rms_norm_specs(d)}
+    if kind == SSD:
+        s["mixer"] = ssm.ssd_specs(cfg)
+    else:
+        s["attn"] = attn.attention_specs(cfg)
     if cfg.d_ff:
         s["ln2"] = rms_norm_specs(d)
         s["mlp"] = mlp_specs(d, cfg.d_ff)
@@ -69,11 +74,16 @@ def apply_layer(p, h, kind, cfg, ctx, positions=None, collect_cache=False,
                 cache_len=0):
     """Residual block.  Returns (h, cache|None)."""
     a_in = rms_norm(h, p["ln1"]["scale"], cfg.norm_eps)
-    out, (k, v) = attn.attention_apply(p["attn"], a_in, cfg, ctx, kind,
-                                       positions=positions)
     cache = None
-    if collect_cache:
-        cache = {"attn": attn.pack_prefill_cache(k, v, kind, cfg, cache_len)}
+    if kind == SSD:
+        out, c = ssm.ssd_block_apply(p["mixer"], a_in, cfg, ctx, collect_cache)
+        if collect_cache:
+            cache = {"mixer": c}
+    else:
+        out, (k, v) = attn.attention_apply(p["attn"], a_in, cfg, ctx, kind,
+                                           positions=positions)
+        if collect_cache:
+            cache = {"attn": attn.pack_prefill_cache(k, v, kind, cfg, cache_len)}
     h = h + out
     if cfg.d_ff:
         m_in = rms_norm(h, p["ln2"]["scale"], cfg.norm_eps)
@@ -85,8 +95,12 @@ def apply_layer_decode(p, h, layer_cache, pos, kind, cfg, ctx):
     """One-token residual block.  h (B,1,D).  Returns (h, layer_cache),
     the cache updated in place."""
     a_in = rms_norm(h, p["ln1"]["scale"], cfg.norm_eps)
-    out, _ = attn.attention_decode(p["attn"], a_in, layer_cache["attn"], pos,
-                                   cfg, ctx, kind)
+    if kind == SSD:
+        out, _ = ssm.ssd_block_decode(p["mixer"], a_in, layer_cache["mixer"],
+                                      cfg, ctx)
+    else:
+        out, _ = attn.attention_decode(p["attn"], a_in, layer_cache["attn"],
+                                       pos, cfg, ctx, kind)
     h = h + out
     if cfg.d_ff:
         m_in = rms_norm(h, p["ln2"]["scale"], cfg.norm_eps)
@@ -97,6 +111,8 @@ def apply_layer_decode(p, h, layer_cache, pos, kind, cfg, ctx):
 def init_layer_cache_specs(cfg, kind, batch, cache_len):
     """ParamSpec tree for one layer's decode cache."""
     _check_ported(cfg, kind)
+    if kind == SSD:
+        return {"mixer": ssm.init_ssd_cache(cfg, batch)}
     return {"attn": attn.attn_cache_specs(cfg, kind, batch, cache_len)}
 
 

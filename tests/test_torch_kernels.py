@@ -16,7 +16,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops, ref as jref  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention_fwd,  # noqa: E402
+                                                 rows_without_keys)
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
@@ -112,6 +113,7 @@ def test_ops_rejects_other_devices():
 def test_kernel_modules_import_without_nvcc(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path), PYTHONPATH=SRC)
     code = ("import repro_torch.kernels.ops, repro_torch.kernels.flash_attention\n"
+            "import repro_torch.kernels.ssd, repro_torch.models.ssm\n"
             "from repro_torch.kernels import build\n"
             "try:\n    build.nvcc()\nexcept RuntimeError as e:\n    print('no nvcc:', e)\n")
     r = subprocess.run([sys.executable, "-c", code], env=env,
@@ -125,3 +127,22 @@ def test_library_path_tracks_source_and_flags():
     p = build.library_path("flash_attention")
     assert p.parent == build.BUILD_DIR and p.name.startswith("flash_attention-")
     assert p == build.library_path("flash_attention")
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (64, 64, True, 16), (96, 64, True, 0), (96, 64, False, 0),
+    (40, 16, True, 24), (39, 16, True, 24), (48, 16, False, 32),
+    (47, 16, False, 32), (8, 0, True, 0), (0, 8, True, 4), (1, 1, True, 1),
+])
+def test_rows_without_keys_matches_the_mask(Sq, Sk, causal, window):
+    """The rule by which flash_attention_fwd refuses a call agrees with the
+    oracle's mask: some query row keeps no key. The CUDA kernel writes 0 for
+    such a row where the oracle returns the mean of v."""
+    qpos = torch.arange(Sq)[:, None]
+    kpos = torch.arange(Sk)[None, :]
+    mask = torch.ones(Sq, Sk, dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= (qpos - kpos) < window
+    assert rows_without_keys(Sq, Sk, causal, window) == bool((~mask.any(1)).any())

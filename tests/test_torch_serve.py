@@ -30,6 +30,13 @@ def test_serve_main_on_cpu_returns_token_ids(capsys):
     assert torch.equal(toks, serve.main(SMOKE + ["--device", "cpu"]))
 
 
+def test_serve_main_mamba2_on_cpu(capsys):
+    toks = serve.main(["--arch", "mamba2-780m"] + SMOKE + ["--device", "cpu"])
+    assert toks.shape == (2, 5)
+    assert int(toks.max()) < get_config("mamba2-780m", smoke=True).vocab_size
+    assert "[serve] prefill 2x40 on cpu" in capsys.readouterr().out
+
+
 def test_serve_main_temperature_sampling_is_seeded():
     a = serve.main(SMOKE + ["--device", "cpu", "--temperature", "1.0"])
     b = serve.main(SMOKE + ["--device", "cpu", "--temperature", "1.0"])
