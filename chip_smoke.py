@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA H100 and check it.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py                  # every phase, as below
+  python3 chip_smoke.py --kernels-only   # phases 1-3: build and hold the kernels
 
 Phases; any failure exits non-zero, and nothing falls back to the CPU or to
 a kernel's plain version:
@@ -10,10 +11,14 @@ a kernel's plain version:
              sm_90a, one process per source, all at once)
   3. kernels each kernel against its plain version on the card, on the same
              inputs; medians of CUDA-event times:
-             flash_attention: the gemma3-4b serving shapes in bf16 (3e-2) and
-             the f32 sweep of tests/test_kernels.py (2e-5);
+             flash_attention: the gemma3-4b serving shapes and the
+             recurrentgemma-9b local shape in bf16 (3e-2) and the f32 sweep
+             of tests/test_kernels.py (2e-5);
              ssd: the f32 sweep of tests/test_kernels.py (2e-3) and the
-             mamba2-780m serving shape (2e-3 x max(1, max |ref|))
+             mamba2-780m serving shape (2e-3 x max(1, max |ref|));
+             rglru_scan: the f32 sweep of tests/test_kernels.py (1e-5) and
+             the recurrentgemma-9b serving shape on three inputs
+             (1e-5 x max(1, max |ref|))
   4. serve   each arch at full width, random weights from a seed: batch 4,
              a 2048-token prompt, 32 greedy decode steps; launch counts of
              every kernel (reset just before the measured run), finite
@@ -22,7 +27,10 @@ a kernel's plain version:
              gemma3-4b (the prompt is past the 1024 window, so the window
              masks and the local ring cache are live): 34 flash_attention
              launches per prefill; mamba2-780m (8 chunks of 256 per
-             sequence): 48 ssd launches per prefill; none in decode
+             sequence): 48 ssd launches per prefill; recurrentgemma-9b
+             (window 2048: the decode checks at 2049 and 2080 tokens run
+             the window mask and wrap the ring): 26 rglru_scan and 12
+             flash_attention launches per prefill; none in decode
 Prints the kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -45,6 +53,7 @@ PEAK_BYTES = 3.35e12
 
 ARCH, BATCH, PROMPT, STEPS, SEED = "gemma3-4b", 4, 2048, 32, 0
 SSM_ARCH = "mamba2-780m"
+RG_ARCH = "recurrentgemma-9b"
 # decode vs full forward, relative to the largest logit: bf16 rounds every
 # layer's output (2^-9 relative) and decode rounds its scores to bf16 where
 # the kernel keeps f32; over 34 layers that stays within a few percent. A
@@ -60,7 +69,10 @@ DECODE_RTOL = 0.1
 # and the chunked kernel differ only in summation order: 1e-3 of the largest
 # logit, while a wrong state, conv history or chunk hand-off moves the
 # outputs wholesale. The served bf16 errors and the f32 ones with the bf16
-# history are printed, not gated.
+# history are printed, not gated. An arch held on the bf16 rule prints the
+# same two replays before it fails that rule, so a failure shows whether
+# rounding or a defect moved it. The replays keep every decode cache (the
+# conv histories and the attention k/v) in the dtype they are given.
 F32_REPLAY = {SSM_ARCH}
 F32_DECODE_RTOL = 1e-3
 
@@ -179,14 +191,16 @@ def phase_kernels(torch):
     log(f"[kernels] flash_attention sweep: f32 max err {sweep_err['float32']:.3g} "
         f"(tol 2e-5), bf16 {sweep_err['bfloat16']:.3g} (tol 3e-2)")
 
-    # the serving shapes: B 4, S 2048, H 8, KV 4, hd 256, bf16; a global layer
-    # (causal) and a local one (causal, window 1024)
+    # the serving shapes, B 4, S 2048, hd 256, bf16: gemma3-4b's (H 8, KV 4)
+    # global layer (causal) and local one (causal, window 1024), and
+    # recurrentgemma-9b's local layer (H 16 over one kv head, window 2048)
     from repro_torch.configs.registry import get_config
-    cfg = get_config(ARCH)
-    G = cfg.num_heads // cfg.num_kv_heads
+    cfg, rg = get_config(ARCH), get_config(RG_ARCH)
     per = {}
-    for label, window in (("global", 0), ("local", cfg.local_window)):
-        q, k, v = inputs(BATCH * cfg.num_kv_heads, G, PROMPT, cfg.head_dim,
+    for label, c, window in (("global", cfg, 0), ("local", cfg, cfg.local_window),
+                             (f"{RG_ARCH} local", rg, rg.local_window)):
+        G = c.num_heads // c.num_kv_heads
+        q, k, v = inputs(BATCH * c.num_kv_heads, G, PROMPT, c.head_dim,
                          torch.bfloat16)
         err = check(q, k, v, True, window, 3e-2, f"serving shape {label}")
         ms = cuda_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True,
@@ -194,10 +208,11 @@ def phase_kernels(torch):
         plain_ms = cuda_ms(torch, lambda: ref.flash_attention_oracle(
             q, k, v, causal=True, window=window), reps=5)
         # yardstick only: one PyTorch call computing the same function
-        q4 = q.view(BATCH, cfg.num_heads, PROMPT, cfg.head_dim)
-        k4 = k.view(BATCH, cfg.num_kv_heads, PROMPT, cfg.head_dim)
-        v4 = v.view(BATCH, cfg.num_kv_heads, PROMPT, cfg.head_dim)
-        if window:
+        q4 = q.view(BATCH, c.num_heads, PROMPT, c.head_dim)
+        k4 = k.view(BATCH, c.num_kv_heads, PROMPT, c.head_dim)
+        v4 = v.view(BATCH, c.num_kv_heads, PROMPT, c.head_dim)
+        # a window as long as the prompt masks no more than causality does
+        if 0 < window < PROMPT:
             pos = torch.arange(PROMPT, device="cuda")
             d = pos[:, None] - pos[None, :]
             mask = (d >= 0) & (d < window)
@@ -211,7 +226,8 @@ def phase_kernels(torch):
                    ).abs().max().item()
         library_ms = cuda_ms(torch, lib)
         bound_ms, bound_by = attention_bound_ms(q, k, True, window)
-        per[label] = {"window": window, "max_abs_err": err, "ms": ms,
+        per[label] = {"window": window, "heads": c.num_heads,
+                      "kv_heads": c.num_kv_heads, "max_abs_err": err, "ms": ms,
                       "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "library_vs_kernel_max_abs_diff": lib_err}
@@ -230,7 +246,8 @@ def phase_kernels(torch):
         "max_abs_err": max(per[x]["max_abs_err"] for x in per),
         "max_err": max(per[x]["max_abs_err"] for x in per),
         **per_prefill, "bound_by": "+".join(sorted({per[x]["bound_by"] for x in per})),
-        "times_are": f"per prefill: {n_global} global + {n_local} local launches",
+        "times_are": f"per {ARCH} prefill: {n_global} global + {n_local} local "
+                     f"launches; {RG_ARCH} per launch under per_launch",
         "f32_sweep_max_abs_err": sweep_err["float32"],
         "per_launch": per,
     }
@@ -320,10 +337,102 @@ def phase_kernels_ssd(torch):
     }
 
 
+def rglru_bound_ms(a):
+    """Least time of one scan: 2 FLOP per element at the f32 rate without
+    tensor cores against the bytes of a and b read once and h written once."""
+    n = a.numel()
+    t_ops, t_bytes = 2 * n / PEAK_FLOPS["float32"], 3 * 4 * n / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_kernels_rglru(torch):
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru import rglru_scan_fwd
+    from repro_torch.models import rglru
+    from repro_torch.models.layers import ParamTree
+
+    def check(a, b, what, scaled):
+        h = rglru_scan_fwd(a, b)
+        torch.cuda.synchronize()
+        want = ref.rglru_scan_oracle(a, b)
+        err = (h - want).abs().max().item()
+        top = want.abs().max().item()
+        tol = 1e-5 * (max(1.0, top) if scaled else 1.0)
+        if not math.isfinite(err) or err > tol:
+            fail(f"rglru_scan {what}: max abs err {err:.3g} > {tol:.3g}")
+        return err, top
+
+    # the f32 sweep of tests/test_kernels.py:57-67, its inputs as it builds them
+    sweep_err = 0.0
+    for S, C in [(100, 48), (64, 64), (33, 7)]:
+        rng = np.random.RandomState(2)
+        a = 0.4 + 0.5 * torch.sigmoid(torch.tensor(rng.randn(2, S, C),
+                                                   dtype=torch.float32))
+        b = torch.tensor(rng.randn(2, S, C), dtype=torch.float32) * 0.1
+        err, _ = check(a.cuda(), b.cuda(), f"sweep S{S} C{C}", scaled=False)
+        sweep_err = max(sweep_err, err)
+    log(f"[kernels] rglru_scan sweep: f32 max err {sweep_err:.3g} (tol 1e-5)")
+
+    # the recurrentgemma-9b serving shape (B 4, S 2048, C = rnn width 4096):
+    # the sweep's distribution; the gates that the port's rglru_gates makes
+    # of u ~ N(0, 1) with its own seeded layer init (lam from rglru_a); and
+    # a in (0.99, 1), where h carries across hundreds of steps and so across
+    # many of the kernel's time chunks
+    cfg = get_config(RG_ARCH)
+    shape = (BATCH, PROMPT, cfg.d_rnn)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    rn = lambda: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    layer = ParamTree(rglru.rglru_specs(cfg), g, "cuda")
+    inputs = {
+        "sweep distribution": (0.4 + 0.5 * torch.sigmoid(rn()), 0.1 * rn()),
+        "rglru_gates(u ~ N(0,1))": rglru.rglru_gates(rn(), layer),
+        "a in (0.99, 1)": (1.0 - 0.01 * torch.sigmoid(rn()), 0.1 * rn()),
+    }
+    del layer
+    checks = {}
+    for what, (a, b) in inputs.items():
+        err, top = check(a, b, f"serving shape, {what}", scaled=True)
+        checks[what] = {"max_abs_err": err, "max_abs_ref": top,
+                        "a_min": a.min().item(), "a_max": a.max().item()}
+        log(f"[kernels] rglru_scan serving shape {shape}, {what}: err {err:.3g} "
+            f"(max |ref| {top:.4g}; a in [{checks[what]['a_min']:.4g}, "
+            f"{checks[what]['a_max']:.4g}])")
+    a, b = inputs["sweep distribution"]
+    ms = cuda_ms(torch, lambda: rglru_scan_fwd(a, b))
+    # the sequential plain version takes 2048 steps of small kernels: 3 reps
+    plain_ms = cuda_ms(torch, lambda: ref.rglru_scan_oracle(a, b), reps=3, warmup=1)
+    bound_ms, bound_by = rglru_bound_ms(a)
+    del inputs, a, b
+    log(f"[kernels] rglru_scan serving shape: {ms:.4f} ms (plain {plain_ms:.3f}, "
+        f"bound {bound_ms:.4f} by {bound_by})")
+    n_layers = sum(kind == "rglru" for kind in cfg.layer_kinds)
+    err = max(c["max_abs_err"] for c in checks.values())
+    return {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru.cu",
+        "replaces": "src/repro/kernels/rglru.py:41",
+        "launches": None,                     # filled in from the serve phase
+        "max_abs_err": err,
+        "ms": n_layers * ms, "plain_ms": n_layers * plain_ms,
+        "bound_ms": n_layers * bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+        "library_note": "no single eager PyTorch call computes a first-order "
+                        "linear recurrence",
+        "times_are": f"per prefill: {n_layers} launches at the serving shape",
+        "f32_sweep_max_abs_err": sweep_err,
+        "per_launch": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "checks": checks},
+    }
+
+
 def _launch_counters():
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.rglru import rglru_scan_fwd
     from repro_torch.kernels.ssd import ssd_fwd
-    return {"flash_attention": flash_attention_fwd, "ssd": ssd_fwd}
+    return {"flash_attention": flash_attention_fwd, "ssd": ssd_fwd,
+            "rglru_scan": rglru_scan_fwd}
 
 
 def phase_serve(torch, arch, per_prefill):
@@ -392,20 +501,10 @@ def phase_serve(torch, arch, per_prefill):
         # forward over all tokens up to them (last-position logits of prefill)
         seq = torch.cat([prompt] + toks, dim=1)
         checks = decode_vs_forward(model, seq, dec_logits)
-        rtol, label = DECODE_RTOL, ""
-        if arch in F32_REPLAY:
-            log(f"[serve] {arch} bf16 decode vs full forward (not gated, see "
-                "F32_REPLAY): " + _fmt_checks(checks))
-            checks = f32_replay(torch, cfg, seq, toks, torch.bfloat16)
-            log(f"[serve] {arch} f32 weights, bf16 conv history: decode vs full "
-                "forward (not gated): " + _fmt_checks(checks))
-            checks = f32_replay(torch, cfg, seq, toks, torch.float32)
-            rtol, label = F32_DECODE_RTOL, "f32 weights, f32 conv history: "
-        for pos, (err, scale) in checks.items():
-            if not err <= rtol * scale:
-                fail(f"{arch}: {label}decode at position {pos} vs full forward: max "
-                     f"abs err {err:.4g} > {rtol} x max |logit| {scale:.4g}")
-    log(f"[serve] {arch} {label}decode vs full forward: " + _fmt_checks(checks))
+    bf16_ok = all(err <= DECODE_RTOL * scale for err, scale in checks.values())
+    gated = arch not in F32_REPLAY
+    log(f"[serve] {arch} bf16 decode vs full forward"
+        + ("" if gated else " (not gated, see F32_REPLAY)") + ": " + _fmt_checks(checks))
     tok_s = BATCH * STEPS / t_decode
     log(f"[serve] {arch} prefill {BATCH}x{PROMPT}: {t_prefill * 1e3:.2f} ms "
         f"({BATCH * PROMPT / t_prefill:.0f} tok/s); decode {STEPS} steps: "
@@ -416,6 +515,23 @@ def phase_serve(torch, arch, per_prefill):
     with torch.inference_mode():
         profile_serving(torch, prefill, decode, sample_token, prompt, min(8, STEPS),
                         arch)
+    rtol, label = DECODE_RTOL, "bf16 "
+    if not (gated and bf16_ok):
+        del model, prefill, decode             # room for an f32 copy of the weights
+        torch.cuda.empty_cache()
+        with torch.inference_mode():
+            replay = f32_replay(torch, cfg, seq, toks, torch.bfloat16)
+            log(f"[serve] {arch} f32 weights, bf16 caches: decode vs full forward "
+                "(not gated): " + _fmt_checks(replay))
+            replay = f32_replay(torch, cfg, seq, toks, torch.float32)
+        log(f"[serve] {arch} f32 weights, f32 caches: decode vs full forward"
+            + (" (not gated)" if gated else "") + ": " + _fmt_checks(replay))
+        if not gated:
+            checks, rtol, label = replay, F32_DECODE_RTOL, "f32 weights, f32 caches: "
+    for pos, (err, scale) in checks.items():
+        if not err <= rtol * scale:
+            fail(f"{arch}: {label}decode at position {pos} vs full forward: max "
+                 f"abs err {err:.4g} > {rtol} x max |logit| {scale:.4g}")
     return launches
 
 
@@ -432,11 +548,16 @@ def decode_vs_forward(model, seq, dec_logits):
     return checks
 
 
-def f32_replay(torch, cfg, seq, toks, conv_dtype):
+def f32_replay(torch, cfg, seq, toks, cache_dtype):
     """decode_vs_forward on an f32 copy of the served weights, fed the served
-    run's tokens, with the SSD conv history kept in `conv_dtype`."""
-    from repro_torch.models import Model, ssm
-    saved, ssm.CACHE_CONV_DTYPE = ssm.CACHE_CONV_DTYPE, conv_dtype
+    run's tokens, with every decode cache (the SSD and RG-LRU conv histories,
+    the attention k/v) kept in `cache_dtype`."""
+    from repro_torch.models import Model, attention, rglru, ssm
+    slots = ((ssm, "CACHE_CONV_DTYPE"), (rglru, "CACHE_CONV_DTYPE"),
+             (attention, "CACHE_DTYPE"))
+    saved = [getattr(mod, name) for mod, name in slots]
+    for mod, name in slots:
+        setattr(mod, name, cache_dtype)
     try:
         model = Model(cfg, device="cuda", seed=SEED).float()
         logits, cache = model.prefill(seq[:, :PROMPT], PROMPT + STEPS)
@@ -446,7 +567,8 @@ def f32_replay(torch, cfg, seq, toks, conv_dtype):
             replay.append(logits)
         return decode_vs_forward(model, seq, replay)
     finally:
-        ssm.CACHE_CONV_DTYPE = saved
+        for (mod, name), value in zip(slots, saved):
+            setattr(mod, name, value)
 
 
 def _fmt_checks(checks):
@@ -459,15 +581,23 @@ def _bucket(name):
         return "flash_attention"
     if "ssd_" in name:
         return "ssd"
+    if "rglru_" in name:
+        return "rglru"
     if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
         return "matmul"
     return "other"
 
 
+def _short(kernel_name):
+    """A kernel's name without its namespaces' noise, cut to 100 characters."""
+    return kernel_name.replace("void ", "").replace("at::native::", "")[:100]
+
+
 def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch):
     """Where the device time goes: torch.profiler over one prefill and over
-    `steps` decode steps; kernel time by bucket, and kernel time over the
-    window's wall time (the device's busy share; the rest is idle)."""
+    `steps` decode steps; kernel time by bucket, the five largest kernels of
+    the "other" bucket by name, and kernel time over the window's wall time
+    (the device's busy share; the rest is idle)."""
     from torch.profiler import ProfilerActivity, profile
 
     def window(fn):
@@ -477,7 +607,7 @@ def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch):
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        buckets, n_ops = {}, 0
+        buckets, other, n_ops = {}, [], 0
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
@@ -485,8 +615,10 @@ def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch):
             if us is None:
                 us = e.self_cuda_time_total
             buckets[_bucket(e.key)] = buckets.get(_bucket(e.key), 0.0) + us
+            if _bucket(e.key) == "other":
+                other.append((us, e.count, e.key))
             n_ops += e.count
-        return out, wall, buckets, n_ops
+        return out, wall, buckets, n_ops, sorted(other, reverse=True)[:5]
 
     def decode_steps(cache, tok):
         for _ in range(steps):
@@ -494,10 +626,10 @@ def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch):
             tok = sample_token(logits)
         return cache
 
-    (logits, cache), wall_p, b_p, n_p = window(lambda: prefill(prompt))
-    _, wall_d, b_d, n_d = window(lambda: decode_steps(cache, sample_token(logits)))
-    for what, wall, b, n in (("prefill", wall_p, b_p, n_p),
-                             (f"decode x{steps}", wall_d, b_d, n_d)):
+    (logits, cache), *prefill_window = window(lambda: prefill(prompt))
+    _, *decode_window = window(lambda: decode_steps(cache, sample_token(logits)))
+    for what, (wall, b, n, other) in (("prefill", prefill_window),
+                                      (f"decode x{steps}", decode_window)):
         busy = sum(b.values()) / 1e3
         if not busy:
             log(f"[profile] {arch} {what}: device time not measured (the profiler "
@@ -508,9 +640,16 @@ def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch):
         log(f"[profile] {arch} {what}: wall {wall * 1e3:.3f} ms, kernels {busy:.3f} ms "
             f"(busy {busy / (wall * 1e3):.1%}, idle {1 - busy / (wall * 1e3):.1%}), "
             f"{n} device operations; {parts}")
+        log(f"[profile] {arch} {what}, largest in other: " + "; ".join(
+            f"{_short(key)} x{count} {us / 1e3:.3f} ms" for us, count, key in other))
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernels phase (prints no result line)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no GPU found (torch.cuda.is_available() is False)",
@@ -525,14 +664,30 @@ def main():
     phase_build()
     flash = phase_kernels(torch)
     ssd = phase_kernels_ssd(torch)
+    scan = phase_kernels_rglru(torch)
+    if args.kernels_only:
+        log(json.dumps({"kernels": [flash, ssd, scan]}))
+        log(card)
+        return 0
     from repro_torch.configs.registry import get_config
-    n_attn = sum(kind in ("global", "local") for kind in get_config(ARCH).layer_kinds)
-    n_ssd = sum(kind == "ssd" for kind in get_config(SSM_ARCH).layer_kinds)
-    flash["launches"] = phase_serve(torch, ARCH, {"flash_attention": n_attn})[
-        "flash_attention"]
+
+    def count(arch, *kinds):
+        return sum(kind in kinds for kind in get_config(arch).layer_kinds)
+
+    by_arch = {ARCH: phase_serve(torch, ARCH, {
+        "flash_attention": count(ARCH, "global", "local")})}
     torch.cuda.empty_cache()
-    ssd["launches"] = phase_serve(torch, SSM_ARCH, {"ssd": n_ssd})["ssd"]
-    log(json.dumps({"kernels": [flash, ssd]}))
+    by_arch[SSM_ARCH] = phase_serve(torch, SSM_ARCH, {"ssd": count(SSM_ARCH, "ssd")})
+    torch.cuda.empty_cache()
+    by_arch[RG_ARCH] = phase_serve(torch, RG_ARCH, {
+        "rglru_scan": count(RG_ARCH, "rglru"),
+        "flash_attention": count(RG_ARCH, "local")})
+    flash["launches_by_arch"] = {a: n["flash_attention"] for a, n in by_arch.items()
+                                 if n["flash_attention"]}
+    flash["launches"] = sum(flash["launches_by_arch"].values())
+    ssd["launches"] = by_arch[SSM_ARCH]["ssd"]
+    scan["launches"] = by_arch[RG_ARCH]["rglru_scan"]
+    log(json.dumps({"kernels": [flash, ssd, scan]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

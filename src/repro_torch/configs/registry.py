@@ -1,12 +1,13 @@
 """Architecture registry: --arch <id> -> ModelConfig (ported archs only)."""
 from __future__ import annotations
 
-from repro_torch.configs import gemma3_4b, mamba2_780m
+from repro_torch.configs import gemma3_4b, mamba2_780m, recurrentgemma_9b
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "gemma3-4b": gemma3_4b,
     "mamba2-780m": mamba2_780m,
+    "recurrentgemma-9b": recurrentgemma_9b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

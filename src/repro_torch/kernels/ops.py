@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.rglru import rglru_scan_fwd
 from repro_torch.kernels.ssd import ssd_fwd
 
 
@@ -26,6 +27,19 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     o = fn(qf, kf, vf, scale=scale, causal=causal, window=window)
     return o.reshape(B, KV, G, S, hd).movedim(3, 1)
+
+
+def rglru_scan(a, b):
+    """(B,S,C) recurrence coefficients -> h (B,S,C) float32.
+
+    Both go to contiguous float32 first, as the TPU kernel does; its block
+    sizes shape only the TPU grid and have no counterpart here."""
+    a, b = a.float().contiguous(), b.float().contiguous()
+    if a.device.type == "cuda":
+        return rglru_scan_fwd(a, b)
+    if a.device.type == "cpu":
+        return ref.rglru_scan_oracle(a, b)
+    raise ValueError(f"rglru_scan: no kernel for device {a.device}")
 
 
 def ssd(x, dt, A, B, C, *, chunk=256):

@@ -34,6 +34,18 @@ def flash_attention_oracle(q, k, v, *, scale=None, causal=True, window=0):
     return torch.einsum("bqs,bsh->bqh", w.to(vx.dtype), vx)
 
 
+def rglru_scan_oracle(a, b):
+    """Sequential linear recurrence h_t = a_t h_{t-1} + b_t, h_0 = 0.
+    (B,S,C) -> h (B,S,C), in float32."""
+    a, b = a.float(), b.float()
+    h = a.new_zeros(a.shape[0], a.shape[2])
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1) if hs else torch.zeros_like(a)
+
+
 def ssd_oracle(x, dt, A, B, C):
     """Fully sequential SSD recurrence (the definition), in float32.
 

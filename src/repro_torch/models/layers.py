@@ -20,7 +20,7 @@ from torch import nn
 class ParamSpec:
     shape: tuple
     dtype: torch.dtype = torch.bfloat16
-    init: str = "normal"          # normal | zeros | ones
+    init: str = "normal"          # normal | zeros | ones | rglru_a
     scale: float = 1.0            # stddev multiplier for "normal"
 
     def materialize(self, generator: torch.Generator, device) -> torch.Tensor:
@@ -28,6 +28,11 @@ class ParamSpec:
             return torch.zeros(self.shape, dtype=self.dtype, device=device)
         if self.init == "ones":
             return torch.ones(self.shape, dtype=self.dtype, device=device)
+        if self.init == "rglru_a":
+            # Griffin: a = sigmoid(lambda) in [0.9, 0.999] -> init lambda accordingly
+            u = torch.empty(self.shape, dtype=torch.float32, device=device)
+            u.uniform_(0.9, 0.999, generator=generator)
+            return torch.log(u / (1 - u)).to(self.dtype)
         if self.init != "normal":
             raise ValueError(f"unknown init {self.init!r}")
         # truncated normal on [-2, 2] scaled by scale/sqrt(fan_in), drawn in f32

@@ -2,8 +2,8 @@
 
 Structure: embed -> layers (superblock x repeat + remainder, unrolled into
 one list) -> final norm -> unembed. Each layer is a residual block:
-ln -> mixer (attention global | local, or the Mamba2 SSD block)
-[-> ln -> gated MLP, when d_ff > 0].
+ln -> mixer (attention global | local, the Mamba2 SSD block or the RG-LRU
+block) [-> ln -> gated MLP, when d_ff > 0].
 
 Parameters keep the JAX package's layouts and nesting; the JAX stack of
 superblock layers (leading ``layers`` axis) becomes one ``ParamTree`` per
@@ -16,23 +16,40 @@ cache), init_cache, decode_step (one token), memory_len.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, NamedTuple
+
 import torch
 from torch import nn
 
 from repro_torch.configs.base import CROSS_ATTN, ENC_ATTN, RGLRU, SSD, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import ssm
+from repro_torch.models import rglru, ssm
 from repro_torch.models.layers import (ParamSpec, ParamTree, embed_apply,
                                        embed_specs, mlp_apply, mlp_specs,
                                        rms_norm, rms_norm_specs, unembed_apply)
 
 _NOT_PORTED = {
     "moe": "MoE (ROADMAP queue 1, item 3)",
-    RGLRU: "RecurrentGemma / RG-LRU (ROADMAP queue 1, item 1)",
     CROSS_ATTN: "cross-attention (ROADMAP queue 1, item 4)",
     ENC_ATTN: "encoder attention (ROADMAP queue 1, item 4)",
     "encdec": "encoder-decoder (ROADMAP queue 1, item 4)",
+}
+
+
+class _Mixer(NamedTuple):
+    """The functions of a recurrent mixer block."""
+    specs: Callable
+    apply: Callable
+    decode: Callable
+    cache_specs: Callable
+
+
+_MIXERS = {
+    SSD: _Mixer(ssm.ssd_specs, ssm.ssd_block_apply, ssm.ssd_block_decode,
+                ssm.init_ssd_cache),
+    RGLRU: _Mixer(rglru.rglru_specs, rglru.rglru_block_apply,
+                  rglru.rglru_block_decode, rglru.init_rglru_cache),
 }
 
 
@@ -60,8 +77,8 @@ def layer_specs(cfg: ModelConfig, kind: str):
     _check_ported(cfg, kind)
     d = cfg.d_model
     s: dict = {"ln1": rms_norm_specs(d)}
-    if kind == SSD:
-        s["mixer"] = ssm.ssd_specs(cfg)
+    if kind in _MIXERS:
+        s["mixer"] = _MIXERS[kind].specs(cfg)
     else:
         s["attn"] = attn.attention_specs(cfg)
     if cfg.d_ff:
@@ -75,8 +92,8 @@ def apply_layer(p, h, kind, cfg, ctx, positions=None, collect_cache=False,
     """Residual block.  Returns (h, cache|None)."""
     a_in = rms_norm(h, p["ln1"]["scale"], cfg.norm_eps)
     cache = None
-    if kind == SSD:
-        out, c = ssm.ssd_block_apply(p["mixer"], a_in, cfg, ctx, collect_cache)
+    if kind in _MIXERS:
+        out, c = _MIXERS[kind].apply(p["mixer"], a_in, cfg, ctx, collect_cache)
         if collect_cache:
             cache = {"mixer": c}
     else:
@@ -95,9 +112,8 @@ def apply_layer_decode(p, h, layer_cache, pos, kind, cfg, ctx):
     """One-token residual block.  h (B,1,D).  Returns (h, layer_cache),
     the cache updated in place."""
     a_in = rms_norm(h, p["ln1"]["scale"], cfg.norm_eps)
-    if kind == SSD:
-        out, _ = ssm.ssd_block_decode(p["mixer"], a_in, layer_cache["mixer"],
-                                      cfg, ctx)
+    if kind in _MIXERS:
+        out, _ = _MIXERS[kind].decode(p["mixer"], a_in, layer_cache["mixer"], cfg, ctx)
     else:
         out, _ = attn.attention_decode(p["attn"], a_in, layer_cache["attn"],
                                        pos, cfg, ctx, kind)
@@ -111,8 +127,8 @@ def apply_layer_decode(p, h, layer_cache, pos, kind, cfg, ctx):
 def init_layer_cache_specs(cfg, kind, batch, cache_len):
     """ParamSpec tree for one layer's decode cache."""
     _check_ported(cfg, kind)
-    if kind == SSD:
-        return {"mixer": ssm.init_ssd_cache(cfg, batch)}
+    if kind in _MIXERS:
+        return {"mixer": _MIXERS[kind].cache_specs(cfg, batch)}
     return {"attn": attn.attn_cache_specs(cfg, kind, batch, cache_len)}
 
 

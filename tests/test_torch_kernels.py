@@ -114,6 +114,7 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path), PYTHONPATH=SRC)
     code = ("import repro_torch.kernels.ops, repro_torch.kernels.flash_attention\n"
             "import repro_torch.kernels.ssd, repro_torch.models.ssm\n"
+            "import repro_torch.kernels.rglru, repro_torch.models.rglru\n"
             "from repro_torch.kernels import build\n"
             "try:\n    build.nvcc()\nexcept RuntimeError as e:\n    print('no nvcc:', e)\n")
     r = subprocess.run([sys.executable, "-c", code], env=env,

@@ -93,5 +93,12 @@ def test_param_spec_inits_are_seeded():
                        torch.zeros(3, dtype=torch.bfloat16))
     assert torch.equal(tl.ParamSpec((3,), init="ones").materialize(None, "cpu"),
                        torch.ones(3, dtype=torch.bfloat16))
+    # rglru_a: lambda = logit(u), u uniform on [0.9, 0.999), seeded, in f32
+    lam = tl.ParamSpec((256,), init="rglru_a", dtype=torch.float32)
+    la = lam.materialize(torch.Generator().manual_seed(3), "cpu")
+    assert torch.equal(la, lam.materialize(torch.Generator().manual_seed(3), "cpu"))
+    assert la.dtype == torch.float32
+    assert np.log(0.9 / 0.1) - 1e-5 <= float(la.min())
+    assert float(la.max()) <= np.log(0.999 / 0.001) + 1e-5
     with pytest.raises(ValueError):
-        tl.ParamSpec((3,), init="rglru_a").materialize(None, "cpu")
+        tl.ParamSpec((3,), init="bogus").materialize(None, "cpu")

@@ -37,6 +37,13 @@ def test_serve_main_mamba2_on_cpu(capsys):
     assert "[serve] prefill 2x40 on cpu" in capsys.readouterr().out
 
 
+def test_serve_main_recurrentgemma_on_cpu(capsys):
+    toks = serve.main(["--arch", "recurrentgemma-9b"] + SMOKE + ["--device", "cpu"])
+    assert toks.shape == (2, 5)
+    assert int(toks.max()) < get_config("recurrentgemma-9b", smoke=True).vocab_size
+    assert "[serve] prefill 2x40 on cpu" in capsys.readouterr().out
+
+
 def test_serve_main_temperature_sampling_is_seeded():
     a = serve.main(SMOKE + ["--device", "cpu", "--temperature", "1.0"])
     b = serve.main(SMOKE + ["--device", "cpu", "--temperature", "1.0"])
@@ -79,10 +86,10 @@ def test_entry_points_without_cuda_raise(monkeypatch):
         from_jax_params({"embed": {"table": np.zeros((2, 2), np.float32)}}, cfg)
 
 
-def _run_smoke(cwd):
+def _run_smoke(cwd, *args):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
-                          capture_output=True, text=True, timeout=120)
+    return subprocess.run([sys.executable, "chip_smoke.py", *args], cwd=cwd,
+                          env=env, capture_output=True, text=True, timeout=120)
 
 
 def test_chip_smoke_fails_fast_without_gpu():
@@ -90,6 +97,13 @@ def test_chip_smoke_fails_fast_without_gpu():
     assert r.returncode != 0
     assert "no GPU" in r.stderr
     assert '"ok": true' not in r.stdout
+
+
+def test_chip_smoke_kernels_only_fails_fast_without_gpu():
+    r = _run_smoke(ROOT, "--kernels-only")
+    assert r.returncode != 0
+    assert "no GPU" in r.stderr
+    assert '"kernels"' not in r.stdout
 
 
 def test_chip_smoke_fails_alone(tmp_path):
