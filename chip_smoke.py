@@ -12,8 +12,12 @@ a kernel's plain version:
   3. kernels each kernel against its plain version on the card, on the same
              inputs; medians of CUDA-event times:
              flash_attention: the gemma3-4b serving shapes and the
-             recurrentgemma-9b local shape in bf16 (3e-2) and the f32 sweep
-             of tests/test_kernels.py (2e-5);
+             recurrentgemma-9b local shape in bf16 (3e-2), each with its
+             share of the bound and its ratio to SDPA; a bf16 sweep over
+             every head dim, S of 1, 80, 200, 328, 2049 and 3000, GQA 1, 2
+             and 16, Sq != Sk and causal, windowed and non-causal masks
+             (3e-2);
+             and the f32 sweep of tests/test_kernels.py (2e-5);
              ssd: the f32 sweep of tests/test_kernels.py (2e-3) and the
              mamba2-780m serving shape (2e-3 x max(1, max |ref|));
              rglru_scan: the f32 sweep of tests/test_kernels.py (1e-5) and
@@ -139,31 +143,58 @@ def phase_device(torch):
     return card
 
 
+def ptxas_usage(text):
+    """{entry function: its ptxas register and spill lines} from `-Xptxas=-v`."""
+    usage, entry = {}, None
+    for ln in text.splitlines():
+        if "Compiling entry function '" in ln:
+            entry = ln.split("'")[1]
+        elif entry and ("registers" in ln or "spill" in ln):
+            usage.setdefault(entry, []).append(ln.split("info    : ")[-1].strip())
+    return {name: "; ".join(lines) for name, lines in usage.items()}
+
+
+# the served instance of K1: the bf16 kernel at head dim 256
+K1_SERVED_ENTRY = ("flash_fwd_bf16_kernel", "ILi256E")
+
+
 def phase_build():
+    """Build every source; returns the ptxas lines of K1's served instance."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     try:
         info = build.build_all()
     except RuntimeError as e:
         fail(str(e))
+    served = None
     for name, item in info.items():
-        usage = [ln.split("info    : ")[-1] for ln in item["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
+        usage = ptxas_usage(item["log"])
         log(f"[build] {name}: {item['seconds']:.1f}s nvcc -> {item['path'].name}; "
-            + "; ".join(sorted(set(usage))))
+            + "; ".join(sorted(set(usage.values()))))
+        # compiler warnings, and ptxas's notes of serialised wgmmas or an
+        # ignored setmaxnreg ("Potential Performance Loss")
+        for ln in item["log"].splitlines():
+            if "warning" in ln.lower() or "Performance Loss" in ln:
+                log(f"[build] {name}: {ln.strip()}")
+        for entry, lines in usage.items():
+            if all(part in entry for part in K1_SERVED_ENTRY):
+                served = lines
+                log(f"[build] flash_attention bf16 hd 256 ({entry}): {lines}")
     log(f"[build] all sources in {time.perf_counter() - t0:.1f}s")
+    return served
 
 
-def phase_kernels(torch):
+def phase_kernels(torch, ptxas_served):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_fwd
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
-    def inputs(BKV, G, S, hd, dtype):
-        mk = lambda n: torch.randn(n, S, hd, generator=g, device="cuda").to(dtype)  # noqa: E731
-        return mk(BKV * G), mk(BKV), mk(BKV)
+    def inputs(BKV, G, S, hd, dtype, Sk=None):
+        mk = lambda n, s: torch.randn(n, s, hd, generator=g, device="cuda").to(dtype)  # noqa: E731
+        Sk = S if Sk is None else Sk
+        return mk(BKV * G, S), mk(BKV, Sk), mk(BKV, Sk)
 
     def check(q, k, v, causal, window, tol, what):
         o = flash_attention_fwd(q, k, v, causal=causal, window=window)
@@ -190,6 +221,28 @@ def phase_kernels(torch):
         sweep_err["float32"] = max(sweep_err["float32"], err)
     log(f"[kernels] flash_attention sweep: f32 max err {sweep_err['float32']:.3g} "
         f"(tol 2e-5), bf16 {sweep_err['bfloat16']:.3g} (tol 3e-2)")
+
+    # bf16 across what the TMA / wgmma design can get wrong: every head dim
+    # (swizzle 32, 64 and 128 B; 1, 2 and 4 boxes a row), S ragged against
+    # both the 64-key and the 128-row tiles, GQA 1, 2 and 16, Sq != Sk both
+    # ways, and causal, windowed and non-causal masks
+    # (hd, BKV, G, Sq, Sk, causal, window)
+    cases = []
+    for hd in HEAD_DIMS:
+        cases += [(hd, 2, 1, 80, 80, False, 0), (hd, 2, 2, 200, 200, True, 0),
+                  (hd, 1, 16, 2049, 2049, True, 1000)]
+    cases += [(256, 2, 2, 200, 328, False, 0), (128, 2, 2, 328, 200, True, 150),
+              (64, 2, 2, 80, 200, True, 0), (32, 2, 2, 200, 200, False, 64),
+              (256, 1, 16, 2049, 2049, False, 0),
+              # one row and one key; one row over many keys
+              (16, 1, 1, 1, 1, True, 0), (256, 2, 2, 1, 3000, False, 0)]
+    wide_err = 0.0
+    for hd, BKV, G, Sq, Sk, causal, window in cases:
+        err = check(*inputs(BKV, G, Sq, hd, torch.bfloat16, Sk), causal, window, 3e-2,
+                    f"bf16 hd{hd} kv{BKV} G{G} Sq{Sq} Sk{Sk} causal={causal} window={window}")
+        wide_err = max(wide_err, err)
+    log(f"[kernels] flash_attention bf16 sweep, {len(cases)} cases (every head dim, "
+        f"ragged S, GQA 1/2/16, Sq != Sk, three masks): max err {wide_err:.3g} (tol 3e-2)")
 
     # the serving shapes, B 4, S 2048, hd 256, bf16: gemma3-4b's (H 8, KV 4)
     # global layer (causal) and local one (causal, window 1024), and
@@ -230,10 +283,12 @@ def phase_kernels(torch):
                       "kv_heads": c.num_kv_heads, "max_abs_err": err, "ms": ms,
                       "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
+                      "bound_share": bound_ms / ms, "vs_library": ms / library_ms,
                       "library_vs_kernel_max_abs_diff": lib_err}
         log(f"[kernels] flash_attention {label} (window {window}): err {err:.3g}, "
             f"{ms:.4f} ms (plain {plain_ms:.3f}, SDPA {library_ms:.4f}, "
-            f"bound {bound_ms:.4f} by {bound_by})")
+            f"bound {bound_ms:.4f} by {bound_by}); {bound_ms / ms:.1%} of the bound, "
+            f"{ms / library_ms:.2f}x SDPA's time")
     n_local = sum(kind == "local" for kind in cfg.layer_kinds)
     n_global = sum(kind == "global" for kind in cfg.layer_kinds)
     per_prefill = {key: n_global * per["global"][key] + n_local * per["local"][key]
@@ -249,6 +304,8 @@ def phase_kernels(torch):
         "times_are": f"per {ARCH} prefill: {n_global} global + {n_local} local "
                      f"launches; {RG_ARCH} per launch under per_launch",
         "f32_sweep_max_abs_err": sweep_err["float32"],
+        "bf16_sweep_max_abs_err": max(sweep_err["bfloat16"], wide_err),
+        "ptxas_bf16_hd256": ptxas_served,
         "per_launch": per,
     }
 
@@ -577,7 +634,7 @@ def _fmt_checks(checks):
 
 
 def _bucket(name):
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:
         return "flash_attention"
     if "ssd_" in name:
         return "ssd"
@@ -661,8 +718,8 @@ def main(argv=None):
         return 2
     sys.path.insert(0, SRC)
     card = phase_device(torch)
-    phase_build()
-    flash = phase_kernels(torch)
+    ptxas_served = phase_build()
+    flash = phase_kernels(torch, ptxas_served)
     ssd = phase_kernels_ssd(torch)
     scan = phase_kernels_rglru(torch)
     if args.kernels_only:

@@ -17,6 +17,11 @@ from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# q rows per tile of each kernel; every size reaches the kernels as a 32-bit
+# int (the bf16 kernel's TMA coordinates are 32-bit too)
+Q_ROWS_PER_TILE = {torch.float32: 64, torch.bfloat16: 128}
+MAX_GRID_Y = 65535
+INT32_MAX = 2**31 - 1
 
 
 def _library():
@@ -45,6 +50,19 @@ def rows_without_keys(Sq, Sk, causal, window):
     return Sk <= 0 or (window > 0 and Sq >= Sk + window)
 
 
+def grid_fits(BH, Sq, Sk, dtype):
+    """True when a (BH, Sq) x (Sk) call fits the kernel's 32-bit sizes and
+    grid. The bf16 kernel is persistent (a block per SM) and ranks its
+    BH * ceil(Sq / 128) q tiles in 32 bits; the f32 kernel's grid is
+    (BH, ceil(Sq / 64)), and a grid's y extent is at most 65535."""
+    q_tiles = -(-Sq // Q_ROWS_PER_TILE[dtype])
+    if max(BH, Sq, Sk) > INT32_MAX:
+        return False
+    if dtype == torch.bfloat16:
+        return BH * q_tiles <= INT32_MAX
+    return q_tiles <= MAX_GRID_Y
+
+
 def _check(q, k, v, causal, window):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_fwd runs on one CUDA device; got "
@@ -65,6 +83,10 @@ def _check(q, k, v, causal, window):
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if not grid_fits(BH, q.shape[1], k.shape[1], q.dtype):
+        raise ValueError(f"BH {BH}, Sq {q.shape[1]}, Sk {k.shape[1]}: past the "
+                         f"{q.dtype} kernel's 32-bit sizes or grid (q tiles of "
+                         f"{Q_ROWS_PER_TILE[q.dtype]} rows)")
     if rows_without_keys(q.shape[1], k.shape[1], causal, window):
         raise ValueError(f"Sq {q.shape[1]}, Sk {k.shape[1]}, window {window}: "
                          "some query rows see no valid key")

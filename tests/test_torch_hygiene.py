@@ -52,3 +52,14 @@ def test_forbidden_rule_catches_jax_and_repro():
                      "import repro_torch.models\nfrom jax.numpy import y\n")
     assert [n for n in _imports(tree) if _forbidden(n)] == \
         ["jax", "repro.models", "jax.numpy"]
+
+
+def test_flash_attention_bf16_path_is_hopper_only():
+    """K1's bf16 path loads through TMA into an mbarrier ring and multiplies
+    with wgmma in warpgroups given registers by setmaxnreg; no mma.sync
+    (pre-Hopper tensor-core) code is left in the source."""
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu").read_text()
+    assert "mma.sync" not in src
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
+                   "setmaxnreg.inc", "setmaxnreg.dec", "flash_fwd_bf16_kernel"):
+        assert needle in src, needle

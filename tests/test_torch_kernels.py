@@ -16,8 +16,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops, ref as jref  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import (flash_attention_fwd,  # noqa: E402
-                                                 rows_without_keys)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    INT32_MAX, MAX_GRID_Y, Q_ROWS_PER_TILE, flash_attention_fwd, grid_fits,
+    rows_without_keys)
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
@@ -147,3 +148,31 @@ def test_rows_without_keys_matches_the_mask(Sq, Sk, causal, window):
     if window:
         mask &= (qpos - kpos) < window
     assert rows_without_keys(Sq, Sk, causal, window) == bool((~mask.any(1)).any())
+
+
+@pytest.mark.parametrize("dtype,BH,Sq,Sk,fits", [
+    (torch.bfloat16, 1, 1, 1, True), (torch.float32, 1, 1, 1, True),
+    (torch.bfloat16, 64, 2048, 2048, True), (torch.float32, 64, 2048, 2049, True),
+    # f32: grid (BH, ceil(Sq / 64)), at most 65535 q tiles on y
+    (torch.float32, 1, MAX_GRID_Y * 64, 8, True),
+    (torch.float32, 1, MAX_GRID_Y * 64 + 1, 8, False),
+    (torch.float32, INT32_MAX, 1, 1, True), (torch.float32, INT32_MAX + 1, 1, 1, False),
+    # bf16: persistent, BH * ceil(Sq / 128) q tiles ranked in 32 bits
+    (torch.bfloat16, 1, MAX_GRID_Y * 128 + 1, 8, True),
+    (torch.bfloat16, 2**15 - 1, 2**16 * 128, 8, True),   # 2^31 - 2^16 tiles
+    (torch.bfloat16, 2**15, 2**16 * 128, 8, False),      # 2^31 tiles
+    (torch.bfloat16, INT32_MAX, 1, 1, True), (torch.bfloat16, 1, 64, INT32_MAX + 1, False),
+])
+def test_grid_fits_the_launch_limits(dtype, BH, Sq, Sk, fits):
+    """The wrapper refuses calls past a kernel's grid or its 32-bit sizes,
+    rather than let the launch fail or ctypes cut an int."""
+    assert grid_fits(BH, Sq, Sk, dtype) is fits
+
+
+def test_q_rows_per_tile_match_the_kernels():
+    """The wrapper's grid rule uses the q rows per tile of the CUDA source:
+    128 for the bf16 kernel (two 64-row consumer warpgroups), 64 for f32."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    assert "constexpr int BM = 128;" in src
+    assert "constexpr int F32_BM = 64;" in src
+    assert Q_ROWS_PER_TILE == {torch.bfloat16: 128, torch.float32: 64}
