@@ -18,8 +18,13 @@ a kernel's plain version:
              and 16, Sq != Sk and causal, windowed and non-causal masks
              (3e-2);
              and the f32 sweep of tests/test_kernels.py (2e-5);
-             ssd: the f32 sweep of tests/test_kernels.py (2e-3) and the
-             mamba2-780m serving shape (2e-3 x max(1, max |ref|));
+             ssd: the f32 sweep of tests/test_kernels.py (2e-3), the
+             served widths (p 64, n 128, chunk 256) at b 1, h 4 and s of
+             1, 100, 300 and 2049 (a chunk shorter than a 64-row tile,
+             ragged last chunks, a one-row tail) and the mamba2-780m
+             serving shape (both 2e-3 x max(1, max |ref|)); its bound at
+             f32 accuracy (3xTF32 on the tensor cores) beside the f32 rate
+             without tensor cores;
              rglru_scan: the f32 sweep of tests/test_kernels.py (1e-5) and
              the recurrentgemma-9b serving shape on three inputs
              (1e-5 x max(1, max |ref|))
@@ -51,8 +56,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM data sheet (dense): bf16 tensor cores, f32 without tensor cores, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM data sheet (dense): bf16 and TF32 tensor cores, f32 without tensor
+# cores, HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
 ARCH, BATCH, PROMPT, STEPS, SEED = "gemma3-4b", 4, 2048, 32, 0
@@ -176,6 +182,10 @@ def phase_build():
         for ln in item["log"].splitlines():
             if "warning" in ln.lower() or "Performance Loss" in ln:
                 log(f"[build] {name}: {ln.strip()}")
+        if name == "ssd":                 # each of K2's kernels, by name
+            for entry, lines in sorted(usage.items()):
+                short = entry.split("ssd_fwd")[-1].lstrip("0123456789")[:36]
+                log(f"[build] ssd {short}: {lines}")
         for entry, lines in usage.items():
             if all(part in entry for part in K1_SERVED_ENTRY):
                 served = lines
@@ -311,8 +321,10 @@ def phase_kernels(torch, ptxas_served):
 
 
 def ssd_bound_ms(x, B, chunk):
-    """Least time of one SSD call: operations at the f32 rate without tensor
-    cores against the bytes of its inputs and outputs, each moved once."""
+    """Least time of one SSD call at f32 accuracy: its operations three times
+    over (3xTF32) at the TF32 tensor-core rate against the bytes of its
+    inputs and outputs, each moved once. Returns (ms, bound by, ms of the
+    operations at the f32 rate without tensor cores against the bytes)."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     Q = min(chunk, s)
@@ -321,8 +333,18 @@ def ssd_bound_ms(x, B, chunk):
     # half of scores . x, C . S_prev and the state update
     flops = b * nc * Q * Q * n + b * h * nc * (Q * Q * p + 4 * Q * n * p)
     nbytes = 4 * (2 * x.numel() + b * s * h + 2 * B.numel() + h + b * h * n * p)
-    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    t_ops, t_bytes = 3 * flops / PEAK_FLOPS["tf32"], nbytes / PEAK_BYTES
+    simt_ms = max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            simt_ms)
+
+
+def ssd_inputs(torch, g, b, s, h, p, n):
+    """x, dt, A, B, C on the card from generator g, scaled as in the f32 sweep
+    of tests/test_kernels.py."""
+    rn = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    return (rn(b, s, h, p), torch.nn.functional.softplus(rn(b, s, h)),
+            -torch.exp(rn(h) * 0.3), rn(b, s, n) * 0.5, rn(b, s, n) * 0.5)
 
 
 def phase_kernels_ssd(torch):
@@ -332,14 +354,15 @@ def phase_kernels_ssd(torch):
     from repro_torch.configs.registry import get_config
     F = torch.nn.functional
 
-    def check(args, chunk, what):
+    def check(args, chunk, what, scaled=True):
+        """2e-3 x max(1, max |ref|), or 2e-3 absolute where not `scaled`."""
         y, sf = ssd_fwd(*args, chunk=chunk)
         torch.cuda.synchronize()
         yr, sfr = ref.ssd_oracle(*args)
         errs = []
         for got, want, name in ((y, yr, "y"), (sf, sfr, "S_final")):
             err = (got - want).abs().max().item()
-            scale = max(1.0, want.abs().max().item())
+            scale = max(1.0, want.abs().max().item()) if scaled else 1.0
             if not math.isfinite(err) or err > 2e-3 * scale:
                 fail(f"ssd {what} {name}: max abs err {err:.3g} > 2e-3 x {scale:.4g}")
             errs.append(err)
@@ -356,28 +379,43 @@ def phase_kernels_ssd(torch):
         B = torch.tensor(rng.randn(b, s, n), dtype=torch.float32) * 0.5
         C = torch.tensor(rng.randn(b, s, n), dtype=torch.float32) * 0.5
         args = [t.cuda() for t in (x, dt, A, B, C)]
-        err, _ = check(args, chunk, f"sweep s{s} chunk{chunk}")
+        err, _ = check(args, chunk, f"sweep s{s} chunk{chunk}", scaled=False)
         sweep_err = max(sweep_err, err)
     log(f"[kernels] ssd sweep: f32 max err {sweep_err:.3g} (tol 2e-3)")
 
-    # the mamba2-780m serving shape, inputs scaled as in that test
+    # the served widths, inputs scaled as in that test: s 1 is one chunk
+    # shorter than a 64-row tile, 100 a ragged single chunk, 300 and 2049
+    # ragged last chunks (2049: one row)
     cfg = get_config(SSM_ARCH)
-    b, s, h, p, n = BATCH, PROMPT, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    widths_err = 0.0
+    for s in (1, 100, 300, 2049):
+        err, top = check(ssd_inputs(torch, g, 1, s, 4, p, n), cfg.ssm_chunk,
+                         f"served widths b1 s{s} h4")
+        widths_err = max(widths_err, err)
+        log(f"[kernels] ssd served widths (b 1, s {s}, h 4, p {p}, n {n}, chunk "
+            f"{cfg.ssm_chunk}): err {err:.3g} (max |ref| {top:.4g})")
+
+    # the mamba2-780m serving shape
+    b, s = BATCH, PROMPT
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    rn = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
-    args = (rn(b, s, h, p), F.softplus(rn(b, s, h)), -torch.exp(rn(h) * 0.3),
-            rn(b, s, n) * 0.5, rn(b, s, n) * 0.5)
+    args = ssd_inputs(torch, g, b, s, h, p, n)
     err, scale = check(args, cfg.ssm_chunk, "serving shape")
     ms = cuda_ms(torch, lambda: ssd_fwd(*args, chunk=cfg.ssm_chunk))
     # the sequential plain version takes ~2048 steps of small kernels: 3 reps
     plain_ms = cuda_ms(torch, lambda: ref.ssd_oracle(*args), reps=3, warmup=1)
-    bound_ms, bound_by = ssd_bound_ms(args[0], args[3], cfg.ssm_chunk)
+    bound_ms, bound_by, simt_ms = ssd_bound_ms(args[0], args[3], cfg.ssm_chunk)
     log(f"[kernels] ssd serving shape (b {b}, s {s}, h {h}, p {p}, n {n}, chunk "
         f"{cfg.ssm_chunk}): err {err:.3g} (max |ref| {scale:.4g}), {ms:.4f} ms "
-        f"(plain {plain_ms:.3f}, bound {bound_ms:.4f} by {bound_by})")
+        f"(plain {plain_ms:.3f}, bound {bound_ms:.4f} by {bound_by} at 3xTF32, "
+        f"{simt_ms:.4f} at the f32 rate without tensor cores); "
+        f"{bound_ms / ms:.1%} of the bound")
     n_layers = sum(kind == "ssd" for kind in cfg.layer_kinds)
     per_launch = {"max_abs_err": err, "max_abs_ref": scale, "ms": ms,
-                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                  "bound_ms_simt_f32": simt_ms, "bound_share": bound_ms / ms}
     return {
         "name": "ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd.cu",
@@ -388,8 +426,10 @@ def phase_kernels_ssd(torch):
         "bound_ms": n_layers * bound_ms, "bound_by": bound_by,
         "library_ms": None,
         "library_note": "no single PyTorch call computes the SSD scan",
+        "bound_ms_simt_f32": n_layers * simt_ms,
         "times_are": f"per prefill: {n_layers} launches at the serving shape",
         "f32_sweep_max_abs_err": sweep_err,
+        "served_widths_max_abs_err": widths_err,
         "per_launch": per_launch,
     }
 
@@ -633,6 +673,10 @@ def _fmt_checks(checks):
                      for p, (e, s) in checks.items())
 
 
+# buckets whose every kernel the profile lines list by name
+NAMED_BUCKETS = ("ssd",)
+
+
 def _bucket(name):
     if "flash_fwd_" in name:
         return "flash_attention"
@@ -653,8 +697,9 @@ def _short(kernel_name):
 def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch):
     """Where the device time goes: torch.profiler over one prefill and over
     `steps` decode steps; kernel time by bucket, the five largest kernels of
-    the "other" bucket by name, and kernel time over the window's wall time
-    (the device's busy share; the rest is idle)."""
+    the "other" bucket and every kernel of the buckets in NAMED_BUCKETS by
+    name, and kernel time over the window's wall time (the device's busy
+    share; the rest is idle)."""
     from torch.profiler import ProfilerActivity, profile
 
     def window(fn):
@@ -664,18 +709,20 @@ def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch):
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        buckets, other, n_ops = {}, [], 0
+        buckets, by_name, n_ops = {}, {}, 0
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
-            buckets[_bucket(e.key)] = buckets.get(_bucket(e.key), 0.0) + us
-            if _bucket(e.key) == "other":
-                other.append((us, e.count, e.key))
+            bucket = _bucket(e.key)
+            buckets[bucket] = buckets.get(bucket, 0.0) + us
+            by_name.setdefault(bucket, []).append((us, e.count, e.key))
             n_ops += e.count
-        return out, wall, buckets, n_ops, sorted(other, reverse=True)[:5]
+        named = {k: sorted(v, reverse=True)[:None if k in NAMED_BUCKETS else 5]
+                 for k, v in by_name.items() if k in NAMED_BUCKETS or k == "other"}
+        return out, wall, buckets, n_ops, named
 
     def decode_steps(cache, tok):
         for _ in range(steps):
@@ -685,7 +732,7 @@ def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch):
 
     (logits, cache), *prefill_window = window(lambda: prefill(prompt))
     _, *decode_window = window(lambda: decode_steps(cache, sample_token(logits)))
-    for what, (wall, b, n, other) in (("prefill", prefill_window),
+    for what, (wall, b, n, named) in (("prefill", prefill_window),
                                       (f"decode x{steps}", decode_window)):
         busy = sum(b.values()) / 1e3
         if not busy:
@@ -697,8 +744,11 @@ def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch):
         log(f"[profile] {arch} {what}: wall {wall * 1e3:.3f} ms, kernels {busy:.3f} ms "
             f"(busy {busy / (wall * 1e3):.1%}, idle {1 - busy / (wall * 1e3):.1%}), "
             f"{n} device operations; {parts}")
-        log(f"[profile] {arch} {what}, largest in other: " + "; ".join(
-            f"{_short(key)} x{count} {us / 1e3:.3f} ms" for us, count, key in other))
+        for bucket, kernels in sorted(named.items()):
+            log(f"[profile] {arch} {what}, "
+                + ("largest in other: " if bucket == "other" else f"{bucket} kernels: ")
+                + "; ".join(f"{_short(key)} x{count} {us / 1e3:.3f} ms"
+                            for us, count, key in kernels))
 
 
 def main(argv=None):

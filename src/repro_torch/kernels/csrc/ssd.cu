@@ -1,5 +1,6 @@
-// Mamba2 SSD (state-space duality) forward for Hopper (sm_90a), f32, with a
-// plain C interface (loaded from Python with ctypes).
+// Mamba2 SSD (state-space duality) forward for Hopper (sm_90a), f32 in and
+// out, every product on the tensor cores in 3xTF32, with a plain C interface
+// (loaded from Python with ctypes).
 //
 // Replaces the TPU kernel src/repro/kernels/ssd.py::ssd_tpu (Pallas, body
 // `_kernel`) and computes the same function:
@@ -15,133 +16,322 @@
 //   they leave S unchanged and are not written, as the TPU kernel's padding.
 //
 // The TPU walks the chunks in order on its sequential grid axis and carries
-// S in VMEM scratch. Blocks on the card run in no order, so one call is
-// three kernels on one stream, each with enough blocks to fill 132 SMs:
-//   1. ssd_chunk_state_kernel, one block per (b, h, chunk): the chunk's cum
-//      (block scan) and its own state sum_j B_j w_j x_j^T from zero, with
-//      its decay exp(cum_last);
-//   2. ssd_state_pass_kernel, elementwise over (b, h, n*p): walks the chunks
+// S in VMEM scratch. Blocks on the card run in no order, so one call is the
+// decomposition of arXiv:2405.21060, SS6, as four kernels on one stream:
+//   1. ssd_cb_kernel, one block per (b, chunk, 64x64 tile pair j <= i):
+//      C_i B_j^T over n, once for all heads, into the scratch cb
+//      (b, nc, Qp, Qp), Qp = Q rounded up to 64 (8.4 MB at the serving
+//      shape, read by the 48 heads out of L2);
+//   2. ssd_chunk_state_kernel, one block per (b, h, chunk): the chunk's cum
+//      (block scan), its decay exp(cum_last) and its own state
+//      (B o w)^T x from zero, w_j = dt_j exp(cum_last - cum_j);
+//   3. ssd_state_pass_kernel, elementwise over (b, h, n*p): walks the chunks
 //      in order and turns each chunk's own state into the state entering it
 //      (S_prev), and writes S_final;
-//   3. ssd_chunk_out_kernel, one block per (b, h, chunk, 64-row i-tile): the
-//      intra-chunk term tile by tile (C_i B_j^T over n, then scores . x_j for
-//      64-row j-tiles with j <= i) plus the inter-chunk term C_i . S_prev.
-//   This is the chunk-parallel form (arXiv:2405.21060, SS6) rather than one
-//   block per (b, h) walking its chunks: that would give 192 blocks at the
-//   mamba2-780m serving shape (b 4, h 48), 1.5 waves on 132 SMs, with one
-//   block's ~100 KB of tiles per SM. Here kernels 1 and 3 launch 1,536 and
-//   6,144 blocks. The wrapper counts the three as one launch of the kernel.
+//   4. ssd_chunk_out_kernel, one block per (b, h, chunk, 64-row i-tile):
+//      exp(cum_i) C_i . S_prev, then for each 64-row j-tile with j <= i the
+//      scores exp(cum_i - cum_j) dt_j (C B^T)_ij, selected on the causal
+//      mask, times x_j. The wrapper counts the four as one launch.
 //
 // What bounds it: at the serving shape (b 4, s 2048, h 48, p 64, n 128,
-// chunk 256) the function needs ~2e10 f32 FLOP (the causal half of C B^T
-// once per (b, chunk), the causal half of scores . x, C . S_prev and the
-// state update per (b, h, chunk)) against ~0.22 GB of inputs and outputs;
-// at the H100's f32 rate without tensor cores (67 TFLOP/s) and 3.35 TB/s
-// the operations bound it (~0.29 ms against ~0.065 ms).
+// chunk 256) the function needs ~1.96e10 FLOP (the causal half of C B^T once
+// per (b, chunk), the causal half of scores . x, C . S_prev and the state
+// update per (b, h, chunk)) against ~0.22 GB of inputs and outputs. f32
+// accuracy from TF32 tensor cores takes three products per product
+// (3xTF32), 5.9e10 TF32 FLOP: 0.119 ms at 495 TFLOP/s against 0.065 ms for
+// the bytes at 3.35 TB/s, so the operations bound it (0.2925 ms at the f32
+// rate without tensor cores).
 // What the design does about that:
-//   * all products are f32 FMAs out of shared memory with 4x4 register
-//     tiles (two 16-byte loads per 16 FMAs); rows are padded by 16 bytes so
-//     the loads are free of bank conflicts;
-//   * j-tiles above the diagonal are never visited, and the heaviest i-tiles
-//     (most j-tiles) are launched first;
-//   * the ragged chunk and sequence edges are masked in the kernels, so the
-//     wrapper copies nothing for padding;
-//   * B and C are read per head from the shared (b,s,n) arrays (L2 keeps
-//     them across the 48 heads); C_i B_j^T is recomputed per head and the
-//     diagonal tiles are done in full, ~1.9x the operations counted above
-//     (1.68 ms against the 0.29 ms bound, NVIDIA H100 80GB HBM3, 700.00 W,
-//     PERF.md).
-//     Computing it once per (b, chunk), tensor cores (TF32 loses the 2e-3
-//     sweep tolerance; 3xTF32 would not), TMA and wgmma are later speed work.
+//   * every product is mma.sync m16n8k8 TF32 with each operand split as
+//     big = cvt.rn.tf32(a), small = cvt.rn.tf32(a - big) and the sum
+//     small.big + big.small + big.big accumulated in f32 (CUTLASS's
+//     OpMultiplyAddFastF32). Plain TF32 misses the 2e-3 sweep tolerance
+//     (3.8e-3 - 5.7e-3); the split is within f32's error
+//     (tests/test_torch_ssd.py emulates both). cvt.rn is one F2FP
+//     instruction on sm_90; cvt.rna (ties away) is three with an inf guard;
+//   * C B^T is computed once per (b, chunk), not per head: 1/48 of the
+//     ~16 GFLOP of it that a per-head computation takes;
+//   * the upper triangle is skipped at MMA granularity: the CB kernel skips
+//     16x8 tiles above the diagonal, and on the diagonal tile the output
+//     kernel's warps stop at the end of their 32 rows (rows 0-31 after
+//     k-step 3). A warp holds two 16-row m-tiles that share each B
+//     fragment, so it skips 32 rows at a time, not 16: stopping its first
+//     m-tile 16 rows earlier would save 1/6 of the diagonal tile's
+//     products, about 3% of the kernel's, and the kernel is held by its
+//     loads more than by its products (below);
+//   * the output kernel's exponentials, exp(cum_i) and exp(cum_i - cum_j),
+//     are ex2.approx.ftz of the argument times log2 e (2 ulp; the other
+//     kernels use expf). The CPU emulation in tests/test_torch_ssd.py uses
+//     an exact exp, so only the card run checks this: the serving-shape
+//     error is 6.7e-4 at max |ref| 103 (6.5e-4 for the earlier f32-FMA
+//     kernel, which used expf);
+//   * tiles are loaded with cp.async (zero-filled past the chunk, the
+//     sequence and n, so the wrapper copies nothing), double-buffered where
+//     a loop walks tiles;
+//     the output kernel's A tiles (C, or C B^T turned into scores) go
+//     through registers, fetched a step ahead while the tensor cores work;
+//   * shared-memory rows are padded so that every fragment load is free of
+//     bank conflicts: 4 mod 8 floats where the fragment walks a row (M- or
+//     N-major), 8 mod 16 where it walks a column (K-major);
+//   * the heaviest i-tiles (most j-tiles) are launched first.
+// Measured (NVIDIA H100 80GB HBM3, 700 W, scripts/ssd_vs_parent.py, PERF.md):
+// 0.60 ms a call against the earlier f32-FMA kernel's 1.65 in one process
+// (CUDA events around one call, its host time included); device time: the
+// output kernel 0.297, the state kernel 0.155, the state pass 0.053, C B^T
+// 0.017. The output kernel is not held by its products: with one TF32
+// product instead of three it takes 0.23 ms, with none 0.15 (its loads,
+// ~0.58 MB from L2 per (b, h, chunk), and their latency).
+// Tried and dropped (same card and script, then timing 5 calls a CUDA-event
+// pair, where this kernel took 0.55 ms):
+// cvt.rna splits (0.89 ms); the three passes of all tiles in turn instead of
+// a tile's three in a row (no change); operands split once into shared
+// memory as (big, small) pairs (0.80 ms: registers spill, twice the shared
+// bytes); wgmma m64n64k8 TF32 for the output kernel as y^T = x^T . scores^T,
+// so that both operands are K-major: with A from registers 0.35 ms for that
+// kernel, with both from shared memory (x transposed and split as it is
+// stored) 0.41-0.61 ms (N = 32 halves on the diagonal tile make ptxas
+// serialise the wgmmas; without them 2 blocks an SM fit, and the staging
+// between steps, not the tensor cores, takes the time); 128-row i-tiles
+// (0.31 ms for that kernel: fewer bytes, no more warps an SM).
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int TQ = 64;           // rows of an i-tile or a j-tile inside a chunk
-constexpr int PAD = 4;           // floats of row padding (16 bytes)
-constexpr int LDQ = TQ + PAD;    // row stride of the scores tile
+constexpr int TQ = 64;           // rows of an i-tile or a j-tile of C B^T and y
+constexpr int TJ = 64;           // rows of a j-tile of the state kernel
 constexpr int MAX_CHUNK = 4096;  // the chunk's cum lives in shared memory
 constexpr int MAX_N = 256;
+constexpr int LDP_PAD = 4;       // scores tile: 64 + 4 floats a row
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Dims {
   int b, s, h, n;
+  int nk;     // n rounded up to 16, the MMA's depth and m-tile
   int Q;      // rows per chunk
   int nc;     // chunks
-  int ntile;  // i-tiles per chunk, ceil(Q / TQ)
+  int ntile;  // 64-row tiles per chunk, ceil(Q / TQ)
+  int Qp;     // ntile * TQ, the row and column count of a cb tile
 };
 
-__device__ __forceinline__ float4 f4_load(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void f4_store(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ float f4_get(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+// ---------------------------------------------------------------------------
+// 3xTF32 tensor-core product and cp.async
+// ---------------------------------------------------------------------------
+
+// Round to TF32 (10 mantissa bits, to nearest even): one F2FP instruction
+// on sm_90, where cvt.rna.tf32.f32 (ties away) compiles to three with an inf
+// guard.
+__device__ __forceinline__ uint32_t tf32_rn(float a) {
+  uint32_t r;
+  asm("cvt.rn.tf32.f32 %0, %1;" : "=r"(r) : "f"(a));
+  return r;
 }
 
-// Copy rows [r0, r0 + TQ) of chunk c of a (b, s, [h,] width) array into a
-// padded (TQ, width + PAD) shared tile, 16 bytes per thread and step. Rows
-// past the chunk or the sequence are zero-filled; `stride` is the distance
-// in floats between consecutive sequence rows and `off` the offset of the
-// wanted head. When `w` is given each row is scaled by w[row].
-__device__ __forceinline__ void load_rows(float* dst, const float* src, const Dims& d,
-                                          int bb, int c, int r0, int width, size_t stride,
-                                          size_t off, const float* w = nullptr) {
-  const int cpr = width / 4;
-  const int ld = width + PAD;
-  for (int idx = threadIdx.x; idx < TQ * cpr; idx += NTHREADS) {
-    const int r = idx / cpr, col = (idx % cpr) * 4;
-    const int lr = r0 + r;                 // row inside the chunk
-    const int t = c * d.Q + lr;            // row of the sequence
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (lr < d.Q && t < d.s) {
-      v = f4_load(src + ((size_t)bb * d.s + t) * stride + off + col);
-      if (w) {
-        const float s = w[r];
-        v.x *= s; v.y *= s; v.z *= s; v.w *= s;
-      }
+// a = big + small, each a TF32 value (13 low bits zero); a - big is exact
+__device__ __forceinline__ void split(float a, uint32_t& big, uint32_t& small) {
+  big = tf32_rn(a);
+  small = tf32_rn(a - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[m][n] += a[m] . b[n] for M x N tiles in 3xTF32: small(a).big(b) +
+// big(a).small(b) + big(a).big(b), the small terms first
+template <int M, int N>
+__device__ __forceinline__ void mma3(float (&acc)[M][N][4], const uint32_t (&ab)[M][4],
+                                     const uint32_t (&as)[M][4], const uint32_t (&bb)[N][2],
+                                     const uint32_t (&bs)[N][2]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      mma_tf32(acc[m][n], as[m], bb[n]);
+      mma_tf32(acc[m][n], ab[m], bs[n]);
+      mma_tf32(acc[m][n], ab[m], bb[n]);
     }
-    f4_store(dst + r * ld + col, v);
+}
+
+// Fragments of m16n8k8 (g = lane / 4, t = lane % 4): A (16 x 8) holds
+// (g, t), (g+8, t), (g, t+4), (g+8, t+4); B (8 x 8) holds (k t, n g),
+// (k t+4, n g); the sum (16 x 8) holds (g, 2t), (g, 2t+1), (g+8, 2t),
+// (g+8, 2t+1). `at(r, k)` reads the A element of tile row r and depth k.
+template <class F>
+__device__ __forceinline__ void load_a(uint32_t (&big)[4], uint32_t (&small)[4], int g, int t,
+                                       F at) {
+  split(at(g, t), big[0], small[0]);
+  split(at(g + 8, t), big[1], small[1]);
+  split(at(g, t + 4), big[2], small[2]);
+  split(at(g + 8, t + 4), big[3], small[3]);
+}
+template <class F>
+__device__ __forceinline__ void load_b(uint32_t (&big)[2], uint32_t (&small)[2], int g, int t,
+                                       F at) {
+  split(at(t, g), big[0], small[0]);
+  split(at(t + 4, g), big[1], small[1]);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N));
+}
+
+__device__ __forceinline__ int valid_rows(const Dims& d, int c) {
+  return min(d.Q, d.s - c * d.Q);
+}
+
+// cp.async rows [r0, r0 + rows) of chunk c of a (b, s, [h,] width) array into
+// a (rows, ld) shared tile, `cols` floats a row (a multiple of 4 >= width).
+// Rows past the chunk or the sequence and columns past `width` are
+// zero-filled; `stride` is the distance in floats between consecutive
+// sequence rows and `off` the offset of the wanted head.
+template <int NT>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, const Dims& d,
+                                          int bb, int c, int r0, int rows, int width, int cols,
+                                          size_t stride, size_t off) {
+  const int cpr = cols / 4, qv = valid_rows(d, c);
+  for (int idx = threadIdx.x; idx < rows * cpr; idx += NT) {
+    const int r = idx / cpr, col = (idx % cpr) * 4, lr = r0 + r;
+    const bool ok = lr < qv && col < width;
+    cp_async16(dst + r * ld + col,
+               ok ? src + ((size_t)bb * d.s + (size_t)c * d.Q + lr) * stride + off + col : src,
+               ok);
   }
 }
 
 // ---------------------------------------------------------------------------
-// 1. per (b, h, chunk): cum, decay and the chunk's own state
+// 1. per (b, chunk, tile pair): cb = C_i B_j^T, once for all heads
 // ---------------------------------------------------------------------------
 
-// Rows of the state each thread owns per slice of n: P/4 threads span the p
-// columns (4 each), the other NTHREADS*4/P span rows, RS rows per thread.
-constexpr int RS = 8;
+constexpr int CB_THREADS = 128;  // 2 x 2 warps of 32 x 32
 
-template <int P>
-__global__ void __launch_bounds__(NTHREADS, 2)
+__global__ void __launch_bounds__(CB_THREADS)
+ssd_cb_kernel(const float* __restrict__ B, const float* __restrict__ C, float* __restrict__ cb,
+              Dims d) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int ld = d.nk + 4;                 // A and B fragments walk rows
+  float* Cs = smem;                        // (TQ, ld) rows of C of the i-tile
+  float* Bs = Cs + TQ * ld;                // (TQ, ld) rows of B of the j-tile
+
+  // pair -> (it, jt), jt <= it, pairs in row order of the lower triangle
+  const int pair = blockIdx.x, c = blockIdx.y, bb = blockIdx.z;
+  int it = static_cast<int>((sqrtf(8.f * pair + 1.f) - 1.f) * 0.5f);
+  while ((it + 1) * (it + 2) / 2 <= pair) ++it;
+  while (it * (it + 1) / 2 > pair) --it;
+  const int jt = pair - it * (it + 1) / 2;
+  const int i0 = it * TQ, j0 = jt * TQ;
+  if (i0 >= valid_rows(d, c)) return;      // the ragged chunk's empty tiles
+
+  load_rows<CB_THREADS>(Cs, ld, C, d, bb, c, i0, TQ, d.n, d.nk, d.n, 0);
+  load_rows<CB_THREADS>(Bs, ld, B, d, bb, c, j0, TQ, d.n, d.nk, d.n, 0);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, wm = warp >> 1, wn = warp & 1;
+  const bool diag = it == jt;
+  // a 16 x 8 tile (rows r0.., columns c0..) is above the diagonal when c0 > r0 + 15
+  auto live = [&](int mt, int nt) {
+    return !diag || wn * 32 + nt * 8 <= wm * 32 + mt * 16 + 15;
+  };
+  float acc[2][4][4] = {};
+  for (int k0 = 0; k0 < d.nk; k0 += 8) {
+    uint32_t ab[2][4], as[2][4], bbig[4][2], bsml[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const float* base = Cs + (wm * 32 + mt * 16) * ld + k0;
+      load_a(ab[mt], as[mt], g, t, [&](int r, int k) { return base[r * ld + k]; });
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float* base = Bs + (wn * 32 + nt * 8) * ld + k0;
+      load_b(bbig[nt], bsml[nt], g, t, [&](int k, int col) { return base[col * ld + k]; });
+    }
+    if (!diag) {
+      mma3(acc, ab, as, bbig, bsml);
+      continue;
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        if (live(mt, nt)) {
+          mma_tf32(acc[mt][nt], as[mt], bbig[nt]);
+          mma_tf32(acc[mt][nt], ab[mt], bsml[nt]);
+          mma_tf32(acc[mt][nt], ab[mt], bbig[nt]);
+        }
+  }
+  float* out = cb + (((size_t)bb * d.nc + c) * d.Qp + i0) * d.Qp + j0;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      if (!live(mt, nt)) continue;
+      const int r = wm * 32 + mt * 16 + g, col = wn * 32 + nt * 8 + 2 * t;
+      *reinterpret_cast<float2*>(out + (size_t)r * d.Qp + col) =
+          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(out + (size_t)(r + 8) * d.Qp + col) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// 2. per (b, h, chunk): cum, decay and the chunk's own state
+// ---------------------------------------------------------------------------
+
+constexpr int ST_THREADS = 256;  // 4 x 2 warps over (n, p)
+constexpr int ST_WARPS = ST_THREADS / 32;
+
+// MQ m-tiles a warp: the state's rows are padded to MQ * 64 >= n in shared
+// memory (zeros), so every warp runs the same products without a branch
+template <int P, int MQ>
+__global__ void __launch_bounds__(ST_THREADS)
 ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                        const float* __restrict__ A, const float* __restrict__ B,
                        float* __restrict__ cum_g, float* __restrict__ decay,
                        float* __restrict__ states, Dims d) {
-  constexpr int TX = P / 4, TY = NTHREADS / TX, LDP = P + PAD;
+  constexpr int LDX = P + 8;               // B fragments walk columns of x
+  constexpr int NT = P / 16;               // 8-column n-tiles of a warp
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int n = d.n, LDN = n + PAD;
-  float* Bs = smem;                       // (TQ, LDN)
-  float* xs = Bs + TQ * LDN;              // (TQ, LDP), rows scaled by w_j
-  float* ws = xs + TQ * LDP;              // (TQ) w_j = dt_j exp(cum_last - cum_j)
-  float* warp_tot = ws + TQ;              // (NWARPS)
-  float* cum = warp_tot + NWARPS;         // (Q)
+  constexpr int NS = MQ * 64;              // rows of the state, padded
+  constexpr int ldb = NS + 8;              // A fragments walk columns of B
+  const int qw = (d.Q + TJ - 1) / TJ * TJ;
+  float* Bs = smem;                        // 2 x (TJ, ldb)
+  float* xs = Bs + 2 * TJ * ldb;           // 2 x (TJ, LDX)
+  float* warp_tot = xs + 2 * TJ * LDX;     // (ST_WARPS)
+  float* cum = warp_tot + ST_WARPS;        // (qw): cum, then w
 
   const int c = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t bhc = ((size_t)bb * d.h + hh) * d.nc + c;
+  const int qv = valid_rows(d, c);
   const float Ah = A[hh];
+  auto dt_at = [&](int r) { return dt[((size_t)bb * d.s + (size_t)c * d.Q + r) * d.h + hh]; };
 
   // inclusive block scan of dt * A over the chunk's rows
   float carry = 0.f;
-  for (int base = 0; base < d.Q; base += NTHREADS) {
-    const int r = base + tid, t = c * d.Q + r;
-    float v = (r < d.Q && t < d.s) ? dt[((size_t)bb * d.s + t) * d.h + hh] * Ah : 0.f;
+  for (int base = 0; base < d.Q; base += ST_THREADS) {
+    const int r = base + tid;
+    float v = r < qv ? dt_at(r) * Ah : 0.f;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const float u = __shfl_up_sync(0xffffffffu, v, o);
@@ -150,267 +340,356 @@ ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ dt
     if (lane == 31) warp_tot[warp] = v;
     __syncthreads();
     if (warp == 0) {
-      float w = lane < NWARPS ? warp_tot[lane] : 0.f;
+      float w = lane < ST_WARPS ? warp_tot[lane] : 0.f;
 #pragma unroll
-      for (int o = 1; o < NWARPS; o <<= 1) {
+      for (int o = 1; o < ST_WARPS; o <<= 1) {
         const float u = __shfl_up_sync(0xffffffffu, w, o);
         if (lane >= o) w += u;
       }
-      if (lane < NWARPS) warp_tot[lane] = w;
+      if (lane < ST_WARPS) warp_tot[lane] = w;
     }
     __syncthreads();
     if (r < d.Q) cum[r] = carry + (warp ? warp_tot[warp - 1] : 0.f) + v;
-    carry += warp_tot[NWARPS - 1];
+    carry += warp_tot[ST_WARPS - 1];
     __syncthreads();
   }
-  for (int r = tid; r < d.Q; r += NTHREADS) cum_g[bhc * d.Q + r] = cum[r];
+  for (int r = tid; r < d.Q; r += ST_THREADS) cum_g[bhc * d.Q + r] = cum[r];
   const float cum_last = cum[d.Q - 1];
   if (tid == 0) decay[bhc] = expf(cum_last);
+  __syncthreads();
+  // cum -> w_j = dt_j exp(cum_last - cum_j) in place, 0 past the valid rows
+  for (int r = tid; r < qw; r += ST_THREADS)
+    cum[r] = r < qv ? dt_at(r) * expf(cum_last - cum[r]) : 0.f;
 
-  const int tx = tid % TX, ty = tid / TX;
-  const size_t xstride = (size_t)d.h * P;
-  for (int k0 = 0; k0 < n; k0 += TY * RS) {
-    float acc[RS][4];
-#pragma unroll
-    for (int r = 0; r < RS; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-    int kk[RS];
-#pragma unroll
-    for (int r = 0; r < RS; ++r) kk[r] = min(k0 + ty + TY * r, n - 1);
-    for (int j0 = 0; j0 < d.Q; j0 += TQ) {
-      __syncthreads();                      // the previous tiles are consumed
-      if (tid < TQ) {
-        const int lr = j0 + tid, t = c * d.Q + lr;
-        ws[tid] = (lr < d.Q && t < d.s)
-                      ? dt[((size_t)bb * d.s + t) * d.h + hh] * expf(cum_last - cum[lr])
-                      : 0.f;
-      }
-      load_rows(Bs, B, d, bb, c, j0, n, (size_t)n, 0);
-      __syncthreads();
-      load_rows(xs, x, d, bb, c, j0, P, xstride, (size_t)hh * P, ws);
-      __syncthreads();
-      const int jn = min(TQ, d.Q - j0);
-      for (int j = 0; j < jn; ++j) {
-        const float4 xv = f4_load(xs + j * LDP + 4 * tx);
-#pragma unroll
-        for (int r = 0; r < RS; ++r) {
-          const float bv = Bs[j * LDN + kk[r]];
-          acc[r][0] = fmaf(bv, xv.x, acc[r][0]);
-          acc[r][1] = fmaf(bv, xv.y, acc[r][1]);
-          acc[r][2] = fmaf(bv, xv.z, acc[r][2]);
-          acc[r][3] = fmaf(bv, xv.w, acc[r][3]);
-        }
-      }
+  // state (n, P) = sum_j B_j^T (w_j x_j): M = n (m-tiles wm, wm + 4, ...),
+  // N = P (warp wn takes P/2 columns), K = the chunk's rows
+  const int g = lane >> 2, t = lane & 3, wm = warp >> 1, wn = warp & 1;
+  const int ntj = (qv + TJ - 1) / TJ;
+  auto load = [&](int jt) {
+    const int buf = jt & 1;
+    load_rows<ST_THREADS>(Bs + buf * TJ * ldb, ldb, B, d, bb, c, jt * TJ, TJ, d.n, NS, d.n, 0);
+    load_rows<ST_THREADS>(xs + buf * TJ * LDX, LDX, x, d, bb, c, jt * TJ, TJ, P, P,
+                          (size_t)d.h * P, (size_t)hh * P);
+    cp_commit();
+  };
+  float acc[MQ][NT][4] = {};
+  load(0);
+  for (int jt = 0; jt < ntj; ++jt) {
+    if (jt + 1 < ntj) {
+      load(jt + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-    float* out = states + bhc * n * P;
+    __syncthreads();                       // tile jt and the w's are in place
+    const float* Bt = Bs + (jt & 1) * TJ * ldb;
+    const float* xt = xs + (jt & 1) * TJ * LDX;
+    const float* wt = cum + jt * TJ;
 #pragma unroll
-    for (int r = 0; r < RS; ++r) {
-      const int k = k0 + ty + TY * r;
-      if (k < n) f4_store(out + (size_t)k * P + 4 * tx,
-                          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
+    for (int k0 = 0; k0 < TJ; k0 += 8) {
+      uint32_t bbig[NT][2], bsml[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* base = xt + k0 * LDX + wn * (P / 2) + nt * 8;
+        load_b(bbig[nt], bsml[nt], g, t,
+               [&](int k, int col) { return base[k * LDX + col] * wt[k0 + k]; });
+      }
+      uint32_t ab[MQ][4], as[MQ][4];
+#pragma unroll
+      for (int q = 0; q < MQ; ++q) {
+        const float* base = Bt + k0 * ldb + (wm + 4 * q) * 16;
+        load_a(ab[q], as[q], g, t, [&](int r, int k) { return base[k * ldb + r]; });
+      }
+      mma3(acc, ab, as, bbig, bsml);
+    }
+    __syncthreads();                       // tile jt is consumed
+  }
+  float* out = states + bhc * d.n * P;
+#pragma unroll
+  for (int q = 0; q < MQ; ++q) {
+    const int r = (wm + 4 * q) * 16 + g;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = wn * (P / 2) + nt * 8 + 2 * t;
+      if (r < d.n)
+        *reinterpret_cast<float2*>(out + (size_t)r * P + col) =
+            make_float2(acc[q][nt][0], acc[q][nt][1]);
+      if (r + 8 < d.n)
+        *reinterpret_cast<float2*>(out + (size_t)(r + 8) * P + col) =
+            make_float2(acc[q][nt][2], acc[q][nt][3]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// 2. per (b, h): chunk states -> state entering each chunk, and S_final
+// 3. per (b, h): chunk states -> state entering each chunk, and S_final
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(NTHREADS)
+constexpr int PASS_THREADS = 256;
+constexpr int PASS_BATCH = 8;    // chunks whose loads are in flight at once
+
+__global__ void __launch_bounds__(PASS_THREADS)
 ssd_state_pass_kernel(float* __restrict__ states, const float* __restrict__ decay,
                       float* __restrict__ s_final, int nc, int np4) {
-  const int e = blockIdx.x * NTHREADS + threadIdx.x;
+  const int e = blockIdx.x * PASS_THREADS + threadIdx.x;
   if (e >= np4) return;
   const size_t bh = blockIdx.y;
+  float4* st = reinterpret_cast<float4*>(states + bh * nc * (size_t)np4 * 4) + e;
   float4 run = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int c = 0; c < nc; ++c) {
-    float4* ptr = reinterpret_cast<float4*>(states + (bh * nc + c) * (size_t)np4 * 4) + e;
-    const float4 st = *ptr;
-    *ptr = run;
-    const float g = decay[bh * nc + c];
-    run = make_float4(g * run.x + st.x, g * run.y + st.y, g * run.z + st.z, g * run.w + st.w);
+  for (int c0 = 0; c0 < nc; c0 += PASS_BATCH) {
+    float4 own[PASS_BATCH];
+    float g[PASS_BATCH];
+#pragma unroll
+    for (int k = 0; k < PASS_BATCH; ++k)
+      if (c0 + k < nc) {
+        own[k] = st[(size_t)(c0 + k) * np4];
+        g[k] = decay[bh * nc + c0 + k];
+      }
+#pragma unroll
+    for (int k = 0; k < PASS_BATCH; ++k)
+      if (c0 + k < nc) {
+        st[(size_t)(c0 + k) * np4] = run;
+        run = make_float4(g[k] * run.x + own[k].x, g[k] * run.y + own[k].y,
+                          g[k] * run.z + own[k].z, g[k] * run.w + own[k].w);
+      }
   }
   reinterpret_cast<float4*>(s_final + bh * (size_t)np4 * 4)[e] = run;
 }
 
 // ---------------------------------------------------------------------------
-// 3. per (b, h, chunk, i-tile): y = intra + inter
+// 4. per (b, h, chunk, i-tile): y = exp(cum_i) C_i . S_prev + scores . x
 // ---------------------------------------------------------------------------
 
+constexpr int OUT_THREADS = 128;  // 2 x 2 warps of 32 rows x P/2 columns
+constexpr int LDS = TQ + LDP_PAD; // the A tile; A fragments walk rows
+constexpr int A_PER_THREAD = TQ * TQ / 4 / OUT_THREADS;  // float4s of an A tile
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One pipeline of 64-deep steps, each an A tile (64 x 64, through registers
+// into Ps) times a B tile (64 x P, cp.async into a double buffer):
+//   steps 0 .. nks-1: A = exp(cum_i) C_i[:, 64 ks ..], B = S_prev[64 ks .., :]
+//                     (the inter-chunk term, n in slices of 64);
+//   steps nks ..    : A = the scores of j-tile jt, B = x_jt, jt = 0 .. it.
+// The next step's A is fetched into registers and its B copied while the
+// tensor cores work on the current one.
 template <int P>
-__global__ void __launch_bounds__(NTHREADS, 2)
+__global__ void __launch_bounds__(OUT_THREADS, 4)
 ssd_chunk_out_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                     const float* __restrict__ B, const float* __restrict__ C,
+                     const float* __restrict__ C, const float* __restrict__ cb,
                      const float* __restrict__ cum_g, const float* __restrict__ states,
                      float* __restrict__ y, Dims d) {
-  constexpr int TX = P / 4, TY = NTHREADS / TX, RY = TQ / TY, LDP = P + PAD;
+  constexpr int LDX = P + 8;               // B tiles: B fragments walk columns
+  constexpr int NT = P / 16;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int n = d.n, LDN = n + PAD;
-  const int union_size = max(TQ * LDN, n * LDP);
-  float* Cs = smem;                       // (TQ, LDN) rows of C of the i-tile
-  float* Bs = Cs + TQ * LDN;              // (TQ, LDN) rows of B of a j-tile; then S_prev (n, LDP)
-  float* xs = Bs + union_size;            // (TQ, LDP)
-  float* Ps = xs + TQ * LDP;              // (TQ, LDQ) scores of the (i, j) tile pair
-  float* cum_i = Ps + TQ * LDQ;           // (TQ)
-  float* cum_j = cum_i + TQ;              // (TQ)
-  float* dt_j = cum_j + TQ;               // (TQ)
+  float* Ps = reinterpret_cast<float*>(smem4);  // (TQ, LDS)
+  float* xs = Ps + TQ * LDS;               // 2 x (TQ, LDX)
+  float* cum_i = xs + 2 * TQ * LDX;        // (TQ)
+  float* cj = cum_i + TQ;                  // 2 x (TQ)
+  float* dj = cj + 2 * TQ;                 // 2 x (TQ)
 
   const int c = blockIdx.x / d.ntile;
   const int it = d.ntile - 1 - blockIdx.x % d.ntile;   // heaviest tiles first
   const int hh = blockIdx.y, bb = blockIdx.z;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, wm = warp >> 1, wn = warp & 1;
   const size_t bhc = ((size_t)bb * d.h + hh) * d.nc + c;
-  const int i0 = it * TQ;
+  const int i0 = it * TQ, qv = valid_rows(d, c);
+  if (i0 >= qv) return;                    // the ragged chunk's empty tiles
   const size_t xstride = (size_t)d.h * P;
-  auto valid = [&](int lr) { return lr < d.Q && c * d.Q + lr < d.s; };
+  const int nks = (d.n + TQ - 1) / TQ, nsteps = nks + it + 1;
 
-  load_rows(Cs, C, d, bb, c, i0, n, (size_t)n, 0);
-  if (tid < TQ) cum_i[tid] = valid(i0 + tid) ? cum_g[bhc * d.Q + i0 + tid] : 0.f;
-
-  // scores tile: 16 x 16 threads, 4 x 4 each, rows cy + 16 r, columns cx + 16 q
-  const int cx = tid % 16, cy = tid / 16;
-  // output tile: P/4 threads over the columns (4 each), rows ty + TY r
-  const int tx = tid % TX, ty = tid / TX;
-  float acc[RY][4];
+  // this thread's share of an A tile: rows arow + 8 q, columns acol..acol+3
+  const int arow = tid / (TQ / 4), acol = (tid % (TQ / 4)) * 4;
+  float4 ar[A_PER_THREAD];
+  auto fetch_a = [&](int step) {
+    if (step < nks) {                      // C rows of the i-tile, columns 64 step ..
+      const int k = step * TQ + acol;
 #pragma unroll
-  for (int r = 0; r < RY; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-
-  for (int jt = 0; jt <= it; ++jt) {
-    const int j0 = jt * TQ;
-    __syncthreads();                        // the previous tiles are consumed
-    load_rows(Bs, B, d, bb, c, j0, n, (size_t)n, 0);
-    load_rows(xs, x, d, bb, c, j0, P, xstride, (size_t)hh * P);
-    if (tid < TQ) {
-      const int lr = j0 + tid, t = c * d.Q + lr;
-      const bool ok = valid(lr);
-      cum_j[tid] = ok ? cum_g[bhc * d.Q + lr] : 0.f;
-      dt_j[tid] = ok ? dt[((size_t)bb * d.s + t) * d.h + hh] : 0.f;
+      for (int q = 0; q < A_PER_THREAD; ++q) {
+        const int lr = i0 + arow + 8 * q;
+        ar[q] = lr < qv && k < d.n
+                    ? __ldg(reinterpret_cast<const float4*>(
+                          C + ((size_t)bb * d.s + (size_t)c * d.Q + lr) * d.n + k))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    } else {                               // the cb tile (it, jt)
+      const float* src = cb + (((size_t)bb * d.nc + c) * d.Qp + i0 + arow) * d.Qp +
+                         (step - nks) * TQ + acol;
+#pragma unroll
+      for (int q = 0; q < A_PER_THREAD; ++q)
+        ar[q] = __ldg(reinterpret_cast<const float4*>(src + (size_t)(8 * q) * d.Qp));
     }
-    __syncthreads();
-
-    float cb[4][4];
+  };
+  auto copy_b = [&](int step) {
+    const int buf = step & 1;
+    float* dst = xs + buf * TQ * LDX;
+    if (step < nks) {                      // S_prev rows 64 step .., zero past n
+      const float* sp = states + bhc * d.n * P;
+      for (int idx = tid; idx < TQ * (P / 4); idx += OUT_THREADS) {
+        const int r = idx / (P / 4), col = (idx % (P / 4)) * 4, k = step * TQ + r;
+        cp_async16(dst + r * LDX + col, k < d.n ? sp + (size_t)k * P + col : sp, k < d.n);
+      }
+    } else {
+      const int j0 = (step - nks) * TQ;
+      load_rows<OUT_THREADS>(dst, LDX, x, d, bb, c, j0, TQ, P, P, xstride, (size_t)hh * P);
+      if (tid < TQ) {
+        const bool ok = j0 + tid < qv;
+        cp_async4(cj + buf * TQ + tid, ok ? cum_g + bhc * d.Q + j0 + tid : cum_g, ok);
+        cp_async4(dj + buf * TQ + tid,
+                  ok ? dt + ((size_t)bb * d.s + (size_t)c * d.Q + j0 + tid) * d.h + hh : dt,
+                  ok);
+      }
+    }
+    cp_commit();
+  };
+  // the A tile of `step` from the registers into Ps: C scaled by exp(cum_i),
+  // or the scores cb exp(cum_i - cum_j) dt_j where j <= i < qv, else 0 (a
+  // select: above the diagonal the exponent overflows and the diagonal
+  // tile's upper half of cb was never written)
+  auto store_a = [&](int step) {
+    const int buf = step & 1;
+    const bool inter = step < nks;
+    const int j0 = (step - nks) * TQ;
+    const float4 cjv = *reinterpret_cast<const float4*>(cj + buf * TQ + acol);
+    const float4 djv = *reinterpret_cast<const float4*>(dj + buf * TQ + acol);
+    const float cjs[4] = {cjv.x, cjv.y, cjv.z, cjv.w}, djs[4] = {djv.x, djv.y, djv.z, djv.w};
 #pragma unroll
-    for (int r = 0; r < 4; ++r) cb[r][0] = cb[r][1] = cb[r][2] = cb[r][3] = 0.f;
-    for (int k = 0; k < n; k += 4) {
-      float4 a[4], bq[4];
+    for (int q = 0; q < A_PER_THREAD; ++q) {
+      const int r = arow + 8 * q, gi = i0 + r;
+      const float ci = cum_i[r];
+      const float v[4] = {ar[q].x, ar[q].y, ar[q].z, ar[q].w};
+      float o[4];
+      if (inter) {
+        const float sc = ex2(ci * kLog2e);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = f4_load(Cs + (cy + 16 * r) * LDN + k);
+        for (int e = 0; e < 4; ++e) o[e] = v[e] * sc;
+      } else {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) bq[q] = f4_load(Bs + (cx + 16 * q) * LDN + k);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          float s = cb[r][q];
-          s = fmaf(a[r].x, bq[q].x, s);
-          s = fmaf(a[r].y, bq[q].y, s);
-          s = fmaf(a[r].z, bq[q].z, s);
-          s = fmaf(a[r].w, bq[q].w, s);
-          cb[r][q] = s;
+        for (int e = 0; e < 4; ++e) {
+          const int gj = j0 + acol + e;
+          o[e] = (gj <= gi && gi < qv) ? v[e] * ex2((ci - cjs[e]) * kLog2e) * djs[e] : 0.f;
         }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = cy + 16 * r, j = cx + 16 * q;
-        const bool keep = i0 + i >= j0 + j && valid(i0 + i) && valid(j0 + j);
-        Ps[i * LDQ + j] = keep ? cb[r][q] * expf(cum_i[i] - cum_j[j]) * dt_j[j] : 0.f;
       }
-    __syncthreads();
+      *reinterpret_cast<float4*>(Ps + r * LDS + acol) = make_float4(o[0], o[1], o[2], o[3]);
+    }
+  };
 
-    for (int j = 0; j < TQ; j += 4) {
-      float4 pa[RY];
+  if (tid < TQ) cum_i[tid] = i0 + tid < qv ? cum_g[bhc * d.Q + i0 + tid] : 0.f;
+  fetch_a(0);
+  copy_b(0);
+  cp_wait<0>();
+  __syncthreads();
+  store_a(0);
+  __syncthreads();
+
+  float acc[2][NT][4] = {};
+  for (int step = 0; step < nsteps; ++step) {
+    if (step + 1 < nsteps) {               // the next step's loads fly under the products
+      fetch_a(step + 1);
+      copy_b(step + 1);
+    }
+    const float* bt = xs + (step & 1) * TQ * LDX;
+    // on the diagonal tile the warp's rows end at wm*32 + 31: the k-steps
+    // past them multiply zeros
+    const int kend = step == nsteps - 1 ? wm * 32 + 32 : TQ;
 #pragma unroll
-      for (int r = 0; r < RY; ++r) pa[r] = f4_load(Ps + (ty + TY * r) * LDQ + j);
+    for (int k0 = 0; k0 < TQ; k0 += 8) {
+      if (k0 >= kend) break;
+      uint32_t bbig[NT][2], bsml[NT][2];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 xv = f4_load(xs + (j + q) * LDP + 4 * tx);
-#pragma unroll
-        for (int r = 0; r < RY; ++r) {
-          const float pv = f4_get(pa[r], q);
-          acc[r][0] = fmaf(pv, xv.x, acc[r][0]);
-          acc[r][1] = fmaf(pv, xv.y, acc[r][1]);
-          acc[r][2] = fmaf(pv, xv.z, acc[r][2]);
-          acc[r][3] = fmaf(pv, xv.w, acc[r][3]);
-        }
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* base = bt + k0 * LDX + wn * (P / 2) + nt * 8;
+        load_b(bbig[nt], bsml[nt], g, t, [&](int k, int col) { return base[k * LDX + col]; });
       }
+      uint32_t ab[2][4], as[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* base = Ps + (wm * 32 + mt * 16) * LDS + k0;
+        load_a(ab[mt], as[mt], g, t, [&](int r, int k) { return base[r * LDS + k]; });
+      }
+      mma3(acc, ab, as, bbig, bsml);
+    }
+    if (step + 1 < nsteps) {
+      cp_wait<0>();
+      __syncthreads();                     // Ps is consumed; the next B tile landed
+      store_a(step + 1);
+      __syncthreads();
     }
   }
 
-  // inter-chunk term: (C_i . S_prev) * exp(cum_i), S_prev into the B buffer
-  __syncthreads();
-  float* Ss = Bs;                           // (n, LDP)
-  const float* sp = states + bhc * n * P;
-  for (int idx = tid; idx < n * TX; idx += NTHREADS) {
-    const int k = idx / TX, col = (idx % TX) * 4;
-    f4_store(Ss + k * LDP + col, f4_load(sp + (size_t)k * P + col));
-  }
-  __syncthreads();
-  float inter[RY][4];
 #pragma unroll
-  for (int r = 0; r < RY; ++r) inter[r][0] = inter[r][1] = inter[r][2] = inter[r][3] = 0.f;
-  for (int k = 0; k < n; k += 4) {
-    float4 ca[RY];
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int r = 0; r < RY; ++r) ca[r] = f4_load(Cs + (ty + TY * r) * LDN + k);
+    for (int half = 0; half < 2; ++half) {
+      const int lr = i0 + wm * 32 + mt * 16 + g + 8 * half;
+      if (lr >= qv) continue;
+      float* row = y + ((size_t)bb * d.s + (size_t)c * d.Q + lr) * xstride + (size_t)hh * P;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 sv = f4_load(Ss + (k + q) * LDP + 4 * tx);
-#pragma unroll
-      for (int r = 0; r < RY; ++r) {
-        const float cv = f4_get(ca[r], q);
-        inter[r][0] = fmaf(cv, sv.x, inter[r][0]);
-        inter[r][1] = fmaf(cv, sv.y, inter[r][1]);
-        inter[r][2] = fmaf(cv, sv.z, inter[r][2]);
-        inter[r][3] = fmaf(cv, sv.w, inter[r][3]);
-      }
+      for (int nt = 0; nt < NT; ++nt)
+        *reinterpret_cast<float2*>(row + wn * (P / 2) + nt * 8 + 2 * t) =
+            make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
     }
-  }
-#pragma unroll
-  for (int r = 0; r < RY; ++r) {
-    const int i = ty + TY * r, lr = i0 + i;
-    if (!valid(lr)) continue;
-    const float g = expf(cum_i[i]);
-    const size_t t = (size_t)c * d.Q + lr;
-    f4_store(y + ((size_t)bb * d.s + t) * xstride + (size_t)hh * P + 4 * tx,
-             make_float4(acc[r][0] + inter[r][0] * g, acc[r][1] + inter[r][1] * g,
-                         acc[r][2] + inter[r][2] * g, acc[r][3] + inter[r][3] * g));
-  }
 }
 
-size_t state_smem_bytes(int P, int n, int Q) {
-  return sizeof(float) * ((size_t)TQ * (n + PAD) + (size_t)TQ * (P + PAD) + TQ + NWARPS + Q);
+size_t cb_smem_bytes(const Dims& d) { return sizeof(float) * 2 * TQ * (d.nk + 4); }
+
+size_t state_smem_bytes(int P, int MQ, const Dims& d) {
+  const int qw = (d.Q + TJ - 1) / TJ * TJ;
+  return sizeof(float) *
+         ((size_t)2 * TJ * (MQ * 64 + 8) + (size_t)2 * TJ * (P + 8) + ST_WARPS + qw);
 }
 
-size_t out_smem_bytes(int P, int n) {
-  const size_t u = (size_t)TQ * (n + PAD) > (size_t)n * (P + PAD) ? (size_t)TQ * (n + PAD)
-                                                                    : (size_t)n * (P + PAD);
-  return sizeof(float) * ((size_t)TQ * (n + PAD) + u + (size_t)TQ * (P + PAD) +
-                          (size_t)TQ * LDQ + 3 * TQ);
+template <int P, int MQ>
+cudaError_t launch_state(const float* x, const float* dt, const float* A, const float* B,
+                         float* cum, float* decay, float* states, const Dims& d,
+                         cudaStream_t stream) {
+  const size_t smem = state_smem_bytes(P, MQ, d);
+  cudaError_t err = cudaFuncSetAttribute(ssd_chunk_state_kernel<P, MQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  ssd_chunk_state_kernel<P, MQ><<<dim3(d.nc, d.h, d.b), ST_THREADS, smem, stream>>>(
+      x, dt, A, B, cum, decay, states, d);
+  return cudaGetLastError();
+}
+
+size_t out_smem_bytes(int P) {
+  return sizeof(float) * ((size_t)TQ * LDS + (size_t)2 * TQ * (P + 8) + 5 * TQ);
 }
 
 template <int P>
 cudaError_t launch(const float* x, const float* dt, const float* A, const float* B,
                    const float* C, float* y, float* s_final, float* states, float* cum,
-                   float* decay, const Dims& d, cudaStream_t stream) {
-  const size_t smem1 = state_smem_bytes(P, d.n, d.Q), smem3 = out_smem_bytes(P, d.n);
-  cudaError_t err = cudaFuncSetAttribute(ssd_chunk_state_kernel<P>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(ssd_chunk_out_kernel<P>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem3);
-  if (err != cudaSuccess) return err;
+                   float* decay, float* cb, const Dims& d, cudaStream_t stream) {
+  const size_t smem_cb = cb_smem_bytes(d), smem_out = out_smem_bytes(P);
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(ssd_cb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem_cb)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(ssd_chunk_out_kernel<P>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_out)) !=
+          cudaSuccess)
+    return err;
 
-  ssd_chunk_state_kernel<P><<<dim3(d.nc, d.h, d.b), NTHREADS, smem1, stream>>>(
-      x, dt, A, B, cum, decay, states, d);
+  ssd_cb_kernel<<<dim3(d.ntile * (d.ntile + 1) / 2, d.nc, d.b), CB_THREADS, smem_cb, stream>>>(
+      B, C, cb, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  switch ((d.n + 63) / 64) {               // m-tiles a warp of the state kernel
+    case 1: err = launch_state<P, 1>(x, dt, A, B, cum, decay, states, d, stream); break;
+    case 2: err = launch_state<P, 2>(x, dt, A, B, cum, decay, states, d, stream); break;
+    case 3: err = launch_state<P, 3>(x, dt, A, B, cum, decay, states, d, stream); break;
+    default: err = launch_state<P, 4>(x, dt, A, B, cum, decay, states, d, stream); break;
+  }
+  if (err != cudaSuccess) return err;
   const int np4 = d.n * P / 4;
-  ssd_state_pass_kernel<<<dim3((np4 + NTHREADS - 1) / NTHREADS, d.b * d.h), NTHREADS, 0,
-                          stream>>>(states, decay, s_final, d.nc, np4);
+  ssd_state_pass_kernel<<<dim3((np4 + PASS_THREADS - 1) / PASS_THREADS, d.b * d.h),
+                          PASS_THREADS, 0, stream>>>(states, decay, s_final, d.nc, np4);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_chunk_out_kernel<P><<<dim3(d.nc * d.ntile, d.h, d.b), NTHREADS, smem3, stream>>>(
-      x, dt, B, C, cum, states, y, d);
+  ssd_chunk_out_kernel<P><<<dim3(d.nc * d.ntile, d.h, d.b), OUT_THREADS, smem_out, stream>>>(
+      x, dt, C, cb, cum, states, y, d);
   return cudaGetLastError();
 }
 
@@ -421,18 +700,20 @@ extern "C" {
 // x (b,s,h,p), dt (b,s,h), A (h,), B/C (b,s,n): f32, contiguous, 16-byte
 // aligned, on the current device. Writes y (b,s,h,p) and s_final (b,h,n,p).
 // Scratch from the caller: states (b,h,nc,n,p), cum (b,h,nc,Q), decay
-// (b,h,nc), with Q = chunk (the caller passes min(chunk, s)) and
-// nc = ceil(s / Q). p in {16, 32, 64}; n a multiple of 4 up to 256.
-// Launches the three kernels on `stream` without synchronising; returns
-// the first launch error (cudaGetLastError()), or cudaErrorInvalidValue.
+// (b,h,nc) and cb (b,nc,Qp,Qp), with Q = chunk (the caller passes
+// min(chunk, s)), nc = ceil(s / Q) and Qp = ceil(Q / 64) * 64. p in
+// {16, 32, 64}; n a multiple of 4 up to 256. Launches the four kernels on
+// `stream` without synchronising; returns the first launch error
+// (cudaGetLastError()), or cudaErrorInvalidValue.
 int ssd_fwd(const void* x, const void* dt, const void* A, const void* B, const void* C,
-            void* y, void* s_final, void* states, void* cum, void* decay, int b, int s,
-            int h, int p, int n, int chunk, void* stream) {
+            void* y, void* s_final, void* states, void* cum, void* decay, void* cb, int b,
+            int s, int h, int p, int n, int chunk, void* stream) {
   if (b <= 0 || s <= 0 || h <= 0 || b > 65535 || h > 65535 || n <= 0 || n % 4 ||
       n > MAX_N || chunk <= 0 || chunk > MAX_CHUNK || chunk > s)
     return cudaErrorInvalidValue;
-  Dims d{b, s, h, n, chunk, (s + chunk - 1) / chunk, (chunk + TQ - 1) / TQ};
-  if ((long long)d.nc * d.ntile > 0x7fffffffLL || (long long)b * h > 65535)
+  const int nc = (s + chunk - 1) / chunk, ntile = (chunk + TQ - 1) / TQ;
+  Dims d{b, s, h, n, (n + 15) / 16 * 16, chunk, nc, ntile, ntile * TQ};
+  if ((long long)nc * ntile > 0x7fffffffLL || (long long)b * h > 65535 || nc > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float *fx = static_cast<const float*>(x), *fdt = static_cast<const float*>(dt),
@@ -440,11 +721,11 @@ int ssd_fwd(const void* x, const void* dt, const void* A, const void* B, const v
               *fC = static_cast<const float*>(C);
   float *fy = static_cast<float*>(y), *fs = static_cast<float*>(s_final),
         *fst = static_cast<float*>(states), *fcum = static_cast<float*>(cum),
-        *fdec = static_cast<float*>(decay);
+        *fdec = static_cast<float*>(decay), *fcb = static_cast<float*>(cb);
   switch (p) {
-    case 16: return launch<16>(fx, fdt, fA, fB, fC, fy, fs, fst, fcum, fdec, d, st);
-    case 32: return launch<32>(fx, fdt, fA, fB, fC, fy, fs, fst, fcum, fdec, d, st);
-    case 64: return launch<64>(fx, fdt, fA, fB, fC, fy, fs, fst, fcum, fdec, d, st);
+    case 16: return launch<16>(fx, fdt, fA, fB, fC, fy, fs, fst, fcum, fdec, fcb, d, st);
+    case 32: return launch<32>(fx, fdt, fA, fB, fC, fy, fs, fst, fcum, fdec, fcb, d, st);
+    case 64: return launch<64>(fx, fdt, fA, fB, fC, fy, fs, fst, fcum, fdec, fcb, d, st);
     default: return cudaErrorInvalidValue;
   }
 }

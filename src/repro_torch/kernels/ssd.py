@@ -1,9 +1,10 @@
 """Mamba2 SSD forward on Hopper: wrapper of ``csrc/ssd.cu``.
 
 The CUDA kernel replaces the TPU kernel ``src/repro/kernels/ssd.py::ssd_tpu``
-and computes the same function (chunked SSD, f32 throughout); its source
-says what bounds it and how the chunk loop is split across blocks. Its plain
-version is ``kernels/ref.py::ssd_oracle``.
+and computes the same function (chunked SSD, f32 in and out, every product
+in 3xTF32 on the tensor cores); its source says what bounds it and how the
+chunk loop is split across blocks. Its plain version is
+``kernels/ref.py::ssd_oracle``.
 """
 from __future__ import annotations
 
@@ -16,13 +17,14 @@ from repro_torch.kernels import build
 HEAD_DIMS = (16, 32, 64)
 MAX_STATE = 256
 MAX_CHUNK = 4096
+TILE = 64          # C B^T rows and columns are padded to it (TQ in csrc/ssd.cu)
 
 
 def _library():
     lib = build.load("ssd")
     fn = lib.ssd_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.ssd_error_string.argtypes = [ctypes.c_int]
         lib.ssd_error_string.restype = ctypes.c_char_p
@@ -56,16 +58,30 @@ def _check(x, dt, A, B, C, chunk):
         raise ValueError(f"chunk {chunk} must be in (0, {MAX_CHUNK}]")
     if b * h > 65535:
         raise ValueError(f"b*h = {b * h} is above the grid limit 65535")
+    if s and -(-s // min(chunk, s)) > 65535:
+        raise ValueError(f"{-(-s // min(chunk, s))} chunks of {chunk} rows are above "
+                         "the grid limit 65535")
     for name, t in named:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def scratch_shapes(b, s, h, p, n, chunk):
+    """Shapes of the kernel's scratch for s >= 1: each chunk's state, cum
+    and decay per head, and C B^T once per (b, chunk), padded to whole
+    TILE-row tiles."""
+    Q = min(chunk, s)
+    nc = -(-s // Q)
+    Qp = -(-Q // TILE) * TILE
+    return {"states": (b, h, nc, n, p), "cum": (b, h, nc, Q), "decay": (b, h, nc),
+            "cb": (b, nc, Qp, Qp)}
 
 
 def ssd_fwd(x, dt, A, B, C, *, chunk=256):
     """x (b,s,h,p), dt (b,s,h), A (h,), B/C (b,s,n): float32 on a CUDA device.
 
     Returns (y (b,s,h,p), S_final (b,h,n,p)) in float32. Launches the
-    kernel (three CUDA kernels in order on the current stream) and adds one
+    kernel (four CUDA kernels in order on the current stream) and adds one
     to ``ssd_fwd.launches``."""
     _check(x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
@@ -74,17 +90,15 @@ def ssd_fwd(x, dt, A, B, C, *, chunk=256):
     s_final = torch.empty(b, h, n, p, dtype=torch.float32, device=x.device)
     if s == 0:
         return y, s_final.zero_()
-    Q = min(chunk, s)
-    nc = -(-s // Q)
-    states = torch.empty(b, h, nc, n, p, dtype=torch.float32, device=x.device)
-    cum = torch.empty(b, h, nc, Q, dtype=torch.float32, device=x.device)
-    decay = torch.empty(b, h, nc, dtype=torch.float32, device=x.device)
+    scratch = {name: torch.empty(shape, dtype=torch.float32, device=x.device)
+               for name, shape in scratch_shapes(b, s, h, p, n, chunk).items()}
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.ssd_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            y.data_ptr(), s_final.data_ptr(), states.data_ptr(), cum.data_ptr(),
-            decay.data_ptr(), b, s, h, p, n, Q,
+            y.data_ptr(), s_final.data_ptr(), *(scratch[k].data_ptr() for k in
+                                                ("states", "cum", "decay", "cb")),
+            b, s, h, p, n, min(chunk, s),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("ssd_fwd launch failed: "

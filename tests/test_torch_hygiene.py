@@ -8,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-ALL_FILES = PORT_FILES + [ROOT / "chip_smoke.py"]
+ALL_FILES = PORT_FILES + [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*.py"))
 
 
 def _imports(tree):
@@ -63,3 +63,17 @@ def test_flash_attention_bf16_path_is_hopper_only():
     for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
                    "setmaxnreg.inc", "setmaxnreg.dec", "flash_fwd_bf16_kernel"):
         assert needle in src, needle
+
+
+def test_ssd_products_are_3xtf32_on_tensor_cores():
+    """K2 multiplies on the tensor cores (mma.sync TF32) with each operand
+    split into two TF32 values rounded by cvt (3xTF32), and computes C B^T in
+    a kernel of its own, once per (b, chunk): its grid has no head axis. No
+    scalar f32 FMA product is left."""
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "ssd.cu").read_text()
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert "cvt.rn.tf32.f32" in src
+    assert "fmaf(" not in src
+    launch = src[src.index("ssd_cb_kernel<<<"):]
+    grid = launch[:launch.index(">>>")]
+    assert "d.nc" in grid and "d.b" in grid and "d.h" not in grid

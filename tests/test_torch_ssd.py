@@ -144,6 +144,116 @@ def test_library_path_of_ssd():
     assert (build.CSRC / "ssd.cu").exists()
 
 
+# (b, s, h, p, n, chunk) -> Q, nc, Qp: the serving shape (C B^T 8.4 MB), a
+# chunk shorter than one tile, a ragged single chunk, a one-row tail
+SCRATCH = [((4, 2048, 48, 64, 128, 256), (256, 8, 256)),
+           ((1, 1, 4, 64, 128, 256), (1, 1, 64)),
+           ((1, 100, 4, 64, 128, 256), (100, 1, 128)),
+           ((1, 2049, 4, 64, 128, 256), (256, 9, 256))]
+
+
+@pytest.mark.parametrize("dims,want", SCRATCH, ids=lambda v: str(v))
+def test_scratch_shapes_follow_b_nc_q(dims, want):
+    """Per head the chunk states, cum and decay; C B^T once per (b, chunk),
+    not per head, in whole 64-row tiles."""
+    from repro_torch.kernels import ssd as kssd
+    b, s, h, p, n, chunk = dims
+    Q, nc, Qp = want
+    got = kssd.scratch_shapes(*dims)
+    assert got == {"states": (b, h, nc, n, p), "cum": (b, h, nc, Q), "decay": (b, h, nc),
+                   "cb": (b, nc, Qp, Qp)}
+    if dims[1] == 2048:
+        assert 4 * int(np.prod(got["cb"])) == 8_388_608     # 8.4 MB, in L2
+
+
+def test_scratch_tile_is_the_kernels():
+    from repro_torch.kernels import ssd as kssd
+    src = (build.CSRC / "ssd.cu").read_text()
+    assert f"constexpr int TQ = {kssd.TILE};" in src
+
+
+# ---------------------------------------------------------------------------
+# the kernel's numerics: 3xTF32 products, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _tf32(a, mode):
+    """Round f32 to TF32 (10 mantissa bits) through an int32 view: "rn" to
+    nearest even (cvt.rn.tf32.f32, what the kernel uses), "rna" ties away."""
+    i = a.contiguous().view(torch.int32)
+    i = i + (0x1000 if mode == "rna" else 0xFFF + ((i >> 13) & 1))
+    return (i & ~0x1FFF).view(torch.float32)
+
+
+def _mm(spec, a, b, mode):
+    """einsum in f32 of TF32 operands: plain TF32 (mode "tf32"), or 3xTF32
+    (small.big + big.small + big.big, each operand split as big = tf32(a),
+    small = tf32(a - big)) with "rn" or "rna" rounding."""
+    if mode == "tf32":
+        return torch.einsum(spec, _tf32(a, "rn"), _tf32(b, "rn"))
+    ab, bb = _tf32(a, mode), _tf32(b, mode)
+    as_, bs = _tf32(a - ab, mode), _tf32(b - bb, mode)
+    return (torch.einsum(spec, as_, bb) + torch.einsum(spec, ab, bs)
+            + torch.einsum(spec, ab, bb))
+
+
+def _ssd_emulated(x, dt, A, B, C, chunk, mode):
+    """ssd_chunked with every product on TF32 operands, in the kernel's
+    factoring: cb = C B^T; y = scores . x + (exp(cum) C) . S_prev; the
+    chunk state B^T (w x)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    pad = (-s) % chunk
+    x, dt = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)), \
+        torch.nn.functional.pad(dt, (0, 0, 0, pad))
+    B, C = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (B, C))
+    nc = (s + pad) // chunk
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h)
+    Bc, Cc = B.reshape(b, nc, chunk, n), C.reshape(b, nc, chunk, n)
+    cum = torch.cumsum(dtc * A, dim=2)                                  # (b,nc,Q,h)
+    cb = _mm("bcin,bcjn->bcij", Cc, Bc, mode)
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    scores = torch.where(causal[None, None, :, :, None],
+                         cb[..., None] * torch.exp(seg) * dtc[:, :, None], 0.0)
+    y = _mm("bcijh,bcjhp->bcihp", scores, xc, mode)
+    w = dtc * torch.exp(cum[:, :, -1:] - cum)                          # (b,nc,Q,h)
+    S_c = _mm("bcjn,bcjhp->bchnp", Bc, xc * w[..., None], mode)
+    decay = torch.exp(cum[:, :, -1])
+    S_run, S_prev = torch.zeros(b, h, n, p), []
+    for c in range(nc):
+        S_prev.append(S_run)
+        S_run = S_run * decay[:, c, :, None, None] + S_c[:, c]
+    S_prev = torch.stack(S_prev, dim=1)
+    Cs = Cc[:, :, :, None, :] * torch.exp(cum)[..., None]              # (b,nc,Q,h,n)
+    y = y + _mm("bcihn,bchnp->bcihp", Cs, S_prev, mode)
+    return y.reshape(b, s + pad, h, p)[:, :s], S_run
+
+
+# the sweep (b 2, h 3, p 16, n 8) and one mid shape at the served widths
+NUMERICS = [(mode, s, chunk, (2, 3, 16, 8)) for mode in ("rn", "rna", "tf32")
+            for s, chunk in SWEEP]
+NUMERICS += [(mode, 512, 256, (1, 4, 64, 128)) for mode in ("rn", "rna")]
+
+
+@pytest.mark.parametrize("mode,s,chunk,dims", NUMERICS,
+                         ids=lambda v: str(v) if not isinstance(v, tuple) else "x".join(map(str, v)))
+def test_tf32_products_against_the_oracle(mode, s, chunk, dims):
+    """3xTF32 products keep the 2e-3 tolerance of the sweep (absolute) and
+    of the served widths (x max |ref|); plain TF32 misses it on every sweep
+    case, which is why the kernel splits each operand."""
+    b, h, p, n = dims
+    args = _t(_ssd_inputs(4, b, s, h, p, n))
+    y, sf = _ssd_emulated(*args, chunk, mode)
+    yr, sfr = ref.ssd_oracle(*args)
+    err = max((y - yr).abs().max().item(), (sf - sfr).abs().max().item())
+    scale = 1.0 if dims == (2, 3, 16, 8) else max(1.0, yr.abs().max().item())
+    if mode == "tf32":
+        assert err > 2e-3
+    else:
+        assert err <= 2e-3 * scale, (err, scale)
+
+
 # ---------------------------------------------------------------------------
 # conv, block and decode against JAX on bridged weights
 # ---------------------------------------------------------------------------
