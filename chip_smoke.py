@@ -25,9 +25,14 @@ a kernel's plain version:
              serving shape (both 2e-3 x max(1, max |ref|)); its bound at
              f32 accuracy (3xTF32 on the tensor cores) beside the f32 rate
              without tensor cores;
-             rglru_scan: the f32 sweep of tests/test_kernels.py (1e-5) and
-             the recurrentgemma-9b serving shape on three inputs
-             (1e-5 x max(1, max |ref|))
+             rglru_scan: the f32 sweep of tests/test_kernels.py (1e-5);
+             ragged B 2 shapes (S 1, 63, 64, 65, 2049 x C 7, 130, 4095), B 1
+             at the serving width, a chain of 256 chunks (B 1, S 16384) with
+             a in (0.99, 1) and the recurrentgemma-9b serving shape on three
+             inputs (all 1e-5 x max(1, max |ref|)); 20 back-to-back calls
+             bit-equal; its device time per call (profiler, memset
+             included) beside torch.add of a and b, which moves the same
+             bytes
   4. serve   each arch at full width, random weights from a seed: batch 4,
              a 2048-token prompt, 32 greedy decode steps; launch counts of
              every kernel (reset just before the measured run), finite
@@ -186,6 +191,9 @@ def phase_build():
             for entry, lines in sorted(usage.items()):
                 short = entry.split("ssd_fwd")[-1].lstrip("0123456789")[:36]
                 log(f"[build] ssd {short}: {lines}")
+        if name == "rglru":               # K3's kernel: 64 steps of a and b in registers
+            for entry, lines in sorted(usage.items()):
+                log(f"[build] rglru {entry}: {lines}")
         for entry, lines in usage.items():
             if all(part in entry for part in K1_SERVED_ENTRY):
                 served = lines
@@ -442,15 +450,53 @@ def rglru_bound_ms(a):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def device_us_by_kernel(torch, fn, calls=5):
+    """{CUDA kernel or memset name: device microseconds per call} of fn over
+    `calls` calls (torch.profiler); empty where the profiler saw no device
+    work."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        out[e.key[:120]] = us / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def rglru_inputs(torch, g, shape, near_one=False):
+    """a, b on the card from generator g: the sweep's distribution
+    (a = 0.4 + 0.5 sigmoid(N), b = 0.1 N), or a in (0.99, 1), where h
+    carries across hundreds of steps and so across many time chunks."""
+    rn = lambda: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    a = 1.0 - 0.01 * torch.sigmoid(rn()) if near_one else 0.4 + 0.5 * torch.sigmoid(rn())
+    return a, 0.1 * rn()
+
+
 def phase_kernels_rglru(torch):
     import numpy as np
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru as krg
     from repro_torch.kernels.rglru import rglru_scan_fwd
     from repro_torch.models import rglru
     from repro_torch.models.layers import ParamTree
 
+    lib = krg._library()
+
     def check(a, b, what, scaled):
+        """1e-5 x max(1, max |ref|), or 1e-5 absolute where not `scaled`."""
+        if lib.rglru_scratch_floats(*a.shape) != krg.scratch_floats(*a.shape):
+            fail(f"rglru_scan {what}: the kernel's scratch, "
+                 f"{lib.rglru_scratch_floats(*a.shape)} floats, is not "
+                 f"kernels/rglru.py's {krg.scratch_floats(*a.shape)}")
         h = rglru_scan_fwd(a, b)
         torch.cuda.synchronize()
         want = ref.rglru_scan_oracle(a, b)
@@ -472,20 +518,42 @@ def phase_kernels_rglru(torch):
         sweep_err = max(sweep_err, err)
     log(f"[kernels] rglru_scan sweep: f32 max err {sweep_err:.3g} (tol 1e-5)")
 
+    # ragged shapes against the 64-step chunk and the 128-channel tile: one
+    # step, one short of a chunk, one chunk, one past it, one past 32 chunks;
+    # 7 channels, one past a tile, one short of 32 tiles. Then B 1 at the
+    # serving width, and a chain of 256 chunks with a in (0.99, 1). Each from
+    # its own generator, so the serving-shape inputs stay those of earlier PRs.
+    cfg = get_config(RG_ARCH)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    ragged_err = 0.0
+    for S in (1, 63, 64, 65, 2049):
+        for C in (7, 130, 4095):
+            err, top = check(*rglru_inputs(torch, g, (2, S, C)), f"ragged B2 S{S} C{C}",
+                             scaled=True)
+            ragged_err = max(ragged_err, err / max(1.0, top))
+    log(f"[kernels] rglru_scan ragged (B 2, S 1/63/64/65/2049, C 7/130/4095): max err "
+        f"{ragged_err:.3g} x max(1, max |ref|) (tol 1e-5)")
+    extra = {}
+    for what, shape, near_one in (("B 1", (1, PROMPT, cfg.d_rnn), False),
+                                  ("long chain, a in (0.99, 1)", (1, 16384, cfg.d_rnn),
+                                   True)):
+        err, top = check(*rglru_inputs(torch, g, shape, near_one), f"{what} {shape}",
+                         scaled=True)
+        extra[what] = {"shape": shape, "max_abs_err": err, "max_abs_ref": top}
+        log(f"[kernels] rglru_scan {what} {shape}: err {err:.3g} (max |ref| {top:.4g})")
+
     # the recurrentgemma-9b serving shape (B 4, S 2048, C = rnn width 4096):
     # the sweep's distribution; the gates that the port's rglru_gates makes
     # of u ~ N(0, 1) with its own seeded layer init (lam from rglru_a); and
-    # a in (0.99, 1), where h carries across hundreds of steps and so across
-    # many of the kernel's time chunks
-    cfg = get_config(RG_ARCH)
+    # a in (0.99, 1)
     shape = (BATCH, PROMPT, cfg.d_rnn)
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    rn = lambda: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
     layer = ParamTree(rglru.rglru_specs(cfg), g, "cuda")
     inputs = {
-        "sweep distribution": (0.4 + 0.5 * torch.sigmoid(rn()), 0.1 * rn()),
-        "rglru_gates(u ~ N(0,1))": rglru.rglru_gates(rn(), layer),
-        "a in (0.99, 1)": (1.0 - 0.01 * torch.sigmoid(rn()), 0.1 * rn()),
+        "sweep distribution": rglru_inputs(torch, g, shape),
+        "rglru_gates(u ~ N(0,1))": rglru.rglru_gates(
+            torch.randn(*shape, generator=g, device="cuda"), layer),
+        "a in (0.99, 1)": rglru_inputs(torch, g, shape, near_one=True),
     }
     del layer
     checks = {}
@@ -497,13 +565,32 @@ def phase_kernels_rglru(torch):
             f"(max |ref| {top:.4g}; a in [{checks[what]['a_min']:.4g}, "
             f"{checks[what]['a_max']:.4g}])")
     a, b = inputs["sweep distribution"]
+    # the carries come from one fixed formula: every call gives the same bits
+    hs = [rglru_scan_fwd(a, b) for _ in range(20)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(h, hs[0]) for h in hs):
+        fail("rglru_scan: 20 back-to-back calls at the serving shape differ")
+    del hs
+    log("[kernels] rglru_scan serving shape: 20 back-to-back calls bit-equal")
     ms = cuda_ms(torch, lambda: rglru_scan_fwd(a, b))
+    device_us = device_us_by_kernel(torch, lambda: rglru_scan_fwd(a, b))
+    device_ms = sum(device_us.values()) / 1e3 or None
     # the sequential plain version takes 2048 steps of small kernels: 3 reps
     plain_ms = cuda_ms(torch, lambda: ref.rglru_scan_oracle(a, b), reps=3, warmup=1)
+    # yardstick of bytes only: the same 12 bytes an element, another function
+    out = torch.empty_like(a)
+    copy_ms = cuda_ms(torch, lambda: torch.add(a, b, out=out))
+    copy_device_ms = sum(device_us_by_kernel(torch, lambda: torch.add(a, b, out=out))
+                         .values()) / 1e3 or None
     bound_ms, bound_by = rglru_bound_ms(a)
-    del inputs, a, b
-    log(f"[kernels] rglru_scan serving shape: {ms:.4f} ms (plain {plain_ms:.3f}, "
-        f"bound {bound_ms:.4f} by {bound_by})")
+    del inputs, a, b, out
+    device = (f"device {device_ms:.4f} ms a call ({bound_ms / device_ms:.1%} of the bound: "
+              + "; ".join(f"{_short(k)} {us:.1f} us" for k, us in device_us.items()) + ")"
+              if device_ms else "device time not measured (the profiler saw no kernels)")
+    copy_device = f"{copy_device_ms:.4f}" if copy_device_ms else "not measured"
+    log(f"[kernels] rglru_scan serving shape: {ms:.4f} ms by CUDA events ({bound_ms / ms:.1%} "
+        f"of the bound); {device}; plain {plain_ms:.3f}; torch.add of a and b (copy_ms) "
+        f"{copy_ms:.4f}, device {copy_device}; bound {bound_ms:.4f} by {bound_by}")
     n_layers = sum(kind == "rglru" for kind in cfg.layer_kinds)
     err = max(c["max_abs_err"] for c in checks.values())
     return {
@@ -517,10 +604,15 @@ def phase_kernels_rglru(torch):
         "library_ms": None,
         "library_note": "no single eager PyTorch call computes a first-order "
                         "linear recurrence",
+        "copy_ms": n_layers * copy_ms,
+        "copy_note": "torch.add(a, b, out=h): the same bytes, another function",
         "times_are": f"per prefill: {n_layers} launches at the serving shape",
         "f32_sweep_max_abs_err": sweep_err,
-        "per_launch": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "checks": checks},
+        "ragged_max_rel_err": ragged_err,
+        "per_launch": {"ms": ms, "device_ms": device_ms, "device_us_by_kernel": device_us,
+                       "plain_ms": plain_ms, "copy_ms": copy_ms,
+                       "copy_device_ms": copy_device_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "checks": checks, **extra},
     }
 
 
@@ -674,7 +766,7 @@ def _fmt_checks(checks):
 
 
 # buckets whose every kernel the profile lines list by name
-NAMED_BUCKETS = ("ssd",)
+NAMED_BUCKETS = ("ssd", "rglru")
 
 
 def _bucket(name):

@@ -7,49 +7,57 @@
 //   the C channels, h_0 = 0, everything f32.
 //
 // The TPU walks time blocks in order on its sequential grid axis and carries
-// h in VMEM scratch. Blocks on the card run in no order, so the time axis is
-// cut into chunks of T steps and one call is three kernels on one stream, the
-// chunked form of the combine (a1, b1) o (a2, b2) = (a1 a2, b1 a2 + b2):
-//   1. rglru_chunk_kernel, one thread per (b, chunk, c) for every chunk but
-//      the last: the chunk's product of a and its end state from h = 0;
-//   2. rglru_carry_kernel, one thread per (b, c): walks the chunks in order
-//      and turns each chunk's (product, end state) into the h that leaves it,
-//      in place;
-//   3. rglru_scan_kernel, one thread per (b, chunk, c): the recurrence again
-//      from the h that enters its chunk (0 for the first), writing h.
-//   One thread per (b, c) walking all of S would give 16,384 threads at the
-//   recurrentgemma-9b serving shape (B 4, S 2048, C 4096): too few loads in
-//   flight to reach the card's memory rate. With T = 64 kernels 1 and 3 run
-//   524,288 threads. The wrapper counts the three as one launch.
+// h in VMEM scratch. Here one kernel makes a single pass, a chained scan: a
+// tile is T time steps of NTHREADS channels (one channel a thread), and
+// every tile loads its own a and b at once while the carry h walks from tile
+// to tile in time through one 64-bit word in device memory (L2) per
+// (b, chunk, channel). A thread
+//   1. loads its T a's and T b's into registers (2T loads in flight);
+//   2. computes its chunk's aggregate from h = 0, the chunk form of the
+//      combine (a1, b1) o (a2, b2) = (a1 a2, b1 a2 + b2): the product of the
+//      a's and the end state;
+//   3. waits on the word of the chunk before (acquire), whose low half holds
+//      the h that enters this chunk and whose high half is the ready flag;
+//   4. publishes the h that leaves this chunk, prod * h_in + end state, in
+//      one 64-bit release store;
+//   5. only then runs its T steps from h_in over its registers, writing h.
+// The first chunk waits for nothing and the last publishes nothing.
+//
+// Blocks run in no order, and a block that waits on one that is not resident
+// would wait forever. So a block takes its tile from an atomic counter, not
+// from blockIdx, and tiles are numbered chunk-major: the tile a block waits
+// on took its number earlier, so it has started and only waits on earlier
+// tiles in turn. The counter and the words live in the caller's scratch,
+// which one memset on the same stream zeroes before the kernel.
 //
 // What bounds it: 2 FLOP per element against 12 bytes (a and b read, h
-// written), so the bytes: 402.7 MB at the serving shape, 0.120 ms at
-// 3.35 TB/s. This design reads a and b twice (kernels 1 and 3), 5/3 of the
-// bytes counted. What it does about that:
-//   * neighbouring threads take neighbouring channels, so every warp load and
-//     store is 128 contiguous bytes;
-//   * a and b do not depend on h, so each thread loads U steps ahead into
-//     registers before it runs their recurrence, keeping 2U loads in flight;
-//   * kernel 1 skips the last chunk, whose end state nothing needs;
-//   * kernel 3 takes the (b, chunk) blocks in the reverse of kernel 1's
-//     order, so it starts on the data kernel 1 read last, which the 50 MB L2
-//     may still hold;
-//   * the ragged S and C edges are masked in the kernels, never padded.
-//   A single pass (a chained scan whose blocks pass their carry on through a
-//   flag in device memory) would read a and b once; that is later speed work.
+// written), so the bytes: 402.7 MB at the recurrentgemma-9b serving shape
+// (B 4, S 2048, C 4096), 0.120 ms at 3.35 TB/s. The single pass moves those
+// 12 bytes an element plus 8 bytes of word per (b, chunk, channel), written
+// once and read once from L2. Neighbouring threads take neighbouring
+// channels, so every warp load and store is 128 contiguous bytes; the
+// ragged S and C edges are masked, never padded. T and NTHREADS were tuned
+// on an H100 (PERF.md, K3's findings): 64 a's and 64 b's take 176 registers
+// without spills; chunks of 32 or 48 steps were slower (a longer chain of
+// hand-offs), and 32 to 256 channels a tile no faster.
 //
-// Precision: each step rounds a * h, then + b, as the plain version does
-// (no fused multiply-add), so within a chunk the kernel repeats the plain
-// version's arithmetic. The carry into a chunk is a product of up to T a's
-// times the carry before it plus the chunk's end state from zero: f32
-// rounding of a few ulps of |h| at each chunk boundary.
+// Precision and determinism: each step rounds a * h, then + b, as the plain
+// version does (no fused multiply-add), so within a chunk the kernel repeats
+// the plain version's arithmetic. The carry into a chunk is one fixed
+// formula, the product of the T a's before it times the carry before that
+// plus their end state from zero: f32 rounding of a few ulps of |h| at each
+// chunk boundary, and the same bits on every call, whatever the timing.
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int NTHREADS = 128;   // channels per block
-constexpr int T = 64;           // time steps per chunk
-constexpr int U = 8;            // steps loaded ahead per thread
+constexpr int NTHREADS = 128;   // channels per tile
+constexpr int T = 64;           // time steps per tile (a chunk)
+constexpr unsigned long long READY = 1ULL << 32;   // the flag in a word's high half
+// A wait that outlasts this many polls (seconds of sleeping) traps, so a
+// broken hand-off fails the launch with an error instead of hanging the card.
+constexpr unsigned SPIN_LIMIT = 1u << 24;
 
 // One step, a * h then + b, each rounded (no fused multiply-add), as the
 // plain version rounds it.
@@ -57,120 +65,128 @@ __device__ __forceinline__ float step(float a, float h, float b) {
   return __fadd_rn(__fmul_rn(a, h), b);
 }
 
-// The recurrence over n steps of one channel from h, returning the last h;
-// a, b and out step by C floats. Writes every h to `out` when kStore, and
-// the product of the a's to *prod when kProd.
-template <bool kStore, bool kProd>
-__device__ __forceinline__ float walk(const float* __restrict__ a, const float* __restrict__ b,
-                                      float* __restrict__ out, long long C, int n, float h,
-                                      float* prod) {
-  float p = 1.0f;
-  int t = 0;
-  for (; t + U <= n; t += U) {
-    float av[U], bv[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      av[u] = __ldg(a + (t + u) * C);
-      bv[u] = __ldg(b + (t + u) * C);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      h = step(av[u], h, bv[u]);
-      if (kProd) p *= av[u];
-      if (kStore) out[(t + u) * C] = h;
-    }
+using Word = cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>;
+
+// The h that leaves the chunk before: spins on its word until the flag is set.
+__device__ __forceinline__ float wait_carry(unsigned long long* word) {
+  Word w(*word);
+  unsigned long long v = w.load(cuda::memory_order_acquire);
+  unsigned ns = 32;
+  for (unsigned polls = 0; !(v & READY); ++polls) {
+    if (polls == SPIN_LIMIT) __trap();
+    __nanosleep(ns);
+    ns = ns < 512 ? 2 * ns : ns;
+    v = w.load(cuda::memory_order_acquire);
   }
-  for (; t < n; ++t) {
-    const float at = __ldg(a + t * C);
-    h = step(at, h, __ldg(b + t * C));
-    if (kProd) p *= at;
-    if (kStore) out[t * C] = h;
-  }
-  if (kProd) *prod = p;
-  return h;
+  return __uint_as_float(static_cast<unsigned>(v));
+}
+
+__device__ __forceinline__ void publish(unsigned long long* word, float h) {
+  Word(*word).store(READY | __float_as_uint(h), cuda::memory_order_release);
 }
 
 struct Dims {
-  int B, S, C, nc;   // nc = ceil(S / T) chunks
+  int B, S, C, nc, cblocks;   // nc = ceil(S / T) chunks, cblocks = ceil(C / NTHREADS)
 };
 
-// grid (ceil(C / NTHREADS), nc - 1, B). prod, hend: (B, nc - 1, C).
-__global__ void rglru_chunk_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                   float* __restrict__ prod, float* __restrict__ hend, Dims d) {
-  const int c = blockIdx.x * NTHREADS + threadIdx.x;
-  if (c >= d.C) return;
-  const int k = blockIdx.y, bi = blockIdx.z;
-  const long long in = ((long long)bi * d.S + (long long)k * T) * d.C + c;
-  const long long sc = ((long long)bi * (d.nc - 1) + k) * d.C + c;
-  float p;
-  hend[sc] = walk<false, true>(a + in, b + in, nullptr, d.C, T, 0.0f, &p);
-  prod[sc] = p;
-}
-
-// grid (ceil(B * C / NTHREADS)). On return hend[b, k, c] is h at the last
-// step of chunk k: the carry into chunk k + 1.
-__global__ void rglru_carry_kernel(const float* __restrict__ prod, float* __restrict__ hend,
-                                   Dims d) {
-  const long long i = (long long)blockIdx.x * NTHREADS + threadIdx.x;
-  if (i >= (long long)d.B * d.C) return;
-  const long long bi = i / d.C, c = i % d.C;
-  const long long base = bi * (d.nc - 1) * d.C + c;
+// One channel's tile of n steps (n == T unless kFull is false, which only the
+// last chunk is). a, b and out step by C floats; prev and next are this
+// channel's words of the chunk before and of this chunk, null where there is
+// none.
+template <bool kFull>
+__device__ __forceinline__ void scan_tile(const float* __restrict__ a,
+                                          const float* __restrict__ b,
+                                          float* __restrict__ out, long long C, int n,
+                                          unsigned long long* prev, unsigned long long* next) {
+  float av[T], bv[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    if (kFull || t < n) {
+      av[t] = __ldg(a + t * C);
+      bv[t] = __ldg(b + t * C);
+    }
+  }
   float h = 0.0f;
-  for (int k = 0; k < d.nc - 1; ++k) {
-    const long long j = base + (long long)k * d.C;
-    h = step(prod[j], h, hend[j]);
-    hend[j] = h;
+  if (kFull && next) {
+    float p = 1.0f, e = 0.0f;
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      e = step(av[t], e, bv[t]);
+      p = __fmul_rn(p, av[t]);
+    }
+    if (prev) h = wait_carry(prev);
+    publish(next, step(p, h, e));
+  } else if (prev) {
+    h = wait_carry(prev);
+  }
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    if (kFull || t < n) {
+      h = step(av[t], h, bv[t]);
+      out[t * C] = h;
+    }
   }
 }
 
-// grid (ceil(C / NTHREADS), nc, B), (b, chunk) taken in reverse.
-__global__ void rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                  const float* __restrict__ hend, float* __restrict__ out,
-                                  Dims d) {
-  const int c = blockIdx.x * NTHREADS + threadIdx.x;
-  if (c >= d.C) return;
-  const int k = d.nc - 1 - blockIdx.y, bi = d.B - 1 - blockIdx.z;
-  const float h0 = k ? hend[((long long)bi * (d.nc - 1) + k - 1) * d.C + c] : 0.0f;
+// grid (nc * B * cblocks), one tile a block. words: (B, nc - 1, C).
+__global__ void __launch_bounds__(NTHREADS)
+rglru_chained_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                          float* __restrict__ out, unsigned* counter,
+                          unsigned long long* words, Dims d) {
+  __shared__ unsigned tile;
+  if (threadIdx.x == 0) tile = atomicAdd(counter, 1u);
+  __syncthreads();
+  // chunk-major: every tile of chunk k comes before any of chunk k + 1
+  const int per_chunk = d.B * d.cblocks;
+  const int k = tile / per_chunk, r = tile % per_chunk;
+  const int bi = r / d.cblocks;
+  const int c = (r % d.cblocks) * NTHREADS + threadIdx.x;
+  if (c >= d.C) return;   // past the barrier: nothing else synchronises
   const long long in = ((long long)bi * d.S + (long long)k * T) * d.C + c;
+  const long long row = (long long)bi * (d.nc - 1);
+  unsigned long long* prev = k ? words + (row + k - 1) * d.C + c : nullptr;
+  unsigned long long* next = k < d.nc - 1 ? words + (row + k) * d.C + c : nullptr;
   const int n = min(T, d.S - k * T);
-  walk<true, false>(a + in, b + in, out + in, d.C, n, h0, nullptr);
+  if (n == T)
+    scan_tile<true>(a + in, b + in, out + in, d.C, n, prev, next);
+  else
+    scan_tile<false>(a + in, b + in, out + in, d.C, n, prev, next);
+}
+
+// 64-bit words of scratch for (B, S, C): the counter, then one per
+// (b, chunk, channel) for every chunk but the last.
+long long scratch_words(int B, int S, int C) {
+  const long long nc = (S + T - 1) / T;
+  return 1 + (long long)B * (nc > 0 ? nc - 1 : 0) * C;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Scratch floats the caller provides for (B, S, C): 2 * B * (nc - 1) * C,
-// nc = ceil(S / 64); none when S <= 64.
+// Scratch floats the caller provides for (B, S, C): 2 + 2 * B * (nc - 1) * C,
+// nc = ceil(S / 64): the tile counter and the hand-off words, 8 bytes each.
 long long rglru_scratch_floats(int B, int S, int C) {
-  const long long nc = (S + T - 1) / T;
-  return 2LL * B * (nc > 0 ? nc - 1 : 0) * C;
+  return 2 * scratch_words(B, S, C);
 }
 
-// a, b, h (B,S,C): f32, contiguous, on the current device; scratch as above.
-// Launches the kernels on `stream` without synchronising; returns the first
-// launch error (cudaGetLastError()), or cudaErrorInvalidValue.
+// a, b, h (B,S,C): f32, contiguous, on the current device; scratch as above,
+// 8-byte aligned. Zeroes the scratch and launches the kernel on `stream`
+// without synchronising; returns the first error (cudaGetLastError()), or
+// cudaErrorInvalidValue.
 int rglru_scan_fwd(const void* a, const void* b, void* h, void* scratch, int B, int S, int C,
                    void* stream) {
-  if (B <= 0 || S <= 0 || C <= 0 || B > 65535) return cudaErrorInvalidValue;
-  const Dims d{B, S, C, (S + T - 1) / T};
-  if (d.nc > 65535) return cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0 || C <= 0) return cudaErrorInvalidValue;
+  const Dims d{B, S, C, (S + T - 1) / T, (C + NTHREADS - 1) / NTHREADS};
+  const long long tiles = (long long)d.nc * B * d.cblocks;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float *fa = static_cast<const float*>(a), *fb = static_cast<const float*>(b);
-  float* fh = static_cast<float*>(h);
-  float* prod = static_cast<float*>(scratch);
-  float* hend = prod + (long long)B * (d.nc - 1) * C;
-  const int cblocks = (C + NTHREADS - 1) / NTHREADS;
-  cudaError_t err;
-  if (d.nc > 1) {
-    rglru_chunk_kernel<<<dim3(cblocks, d.nc - 1, B), NTHREADS, 0, st>>>(fa, fb, prod, hend, d);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const long long nbc = ((long long)B * C + NTHREADS - 1) / NTHREADS;
-    if (nbc > 0x7fffffffLL) return cudaErrorInvalidValue;
-    rglru_carry_kernel<<<(unsigned)nbc, NTHREADS, 0, st>>>(prod, hend, d);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  rglru_scan_kernel<<<dim3(cblocks, d.nc, B), NTHREADS, 0, st>>>(fa, fb, hend, fh, d);
+  auto* words = static_cast<unsigned long long*>(scratch);
+  cudaError_t err = cudaMemsetAsync(words, 0, 8 * scratch_words(B, S, C), st);
+  if (err != cudaSuccess) return err;
+  rglru_chained_scan_kernel<<<(unsigned)tiles, NTHREADS, 0, st>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(h),
+      reinterpret_cast<unsigned*>(words), words + 1, d);
   return cudaGetLastError();
 }
 

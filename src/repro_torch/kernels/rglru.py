@@ -3,8 +3,8 @@
 The CUDA kernel replaces the TPU kernel
 ``src/repro/kernels/rglru.py::rglru_scan_tpu`` and computes the same function
 (h_t = a_t h_{t-1} + b_t over (B,S,C), h_0 = 0, f32); its source says what
-bounds it and how the time axis is split across blocks. Its plain version is
-``kernels/ref.py::rglru_scan_oracle``.
+bounds it and how the carry is handed from one time chunk to the next. Its
+plain version is ``kernels/ref.py::rglru_scan_oracle``.
 """
 from __future__ import annotations
 
@@ -13,6 +13,16 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+
+CHUNK = 64          # time steps per tile: ``T`` in csrc/rglru.cu
+
+
+def scratch_floats(B, S, C):
+    """Floats of scratch the kernel takes for (B,S,C), as the C function
+    ``rglru_scratch_floats`` counts them: the tile counter and one hand-off
+    word per (b, chunk, channel) for every chunk but the last, 8 bytes each."""
+    nc = -(-S // CHUNK)
+    return 2 * (1 + B * max(nc - 1, 0) * C)
 
 
 def _library():
@@ -39,8 +49,6 @@ def _check(a, b):
     if a.dim() != 3 or a.shape != b.shape:
         raise ValueError(f"want a and b of one shape (B,S,C); got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
-    if a.shape[0] > 65535:
-        raise ValueError(f"batch {a.shape[0]} is above the grid limit 65535")
     for name, t in (("a", a), ("b", b)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
@@ -49,8 +57,8 @@ def _check(a, b):
 def rglru_scan_fwd(a, b):
     """a, b (B,S,C): float32 on a CUDA device -> h (B,S,C) float32.
 
-    Launches the kernel (three CUDA kernels in order on the current stream)
-    and adds one to ``rglru_scan_fwd.launches``."""
+    Zeroes the kernel's scratch (one memset) and launches its one CUDA kernel
+    on the current stream, and adds one to ``rglru_scan_fwd.launches``."""
     _check(a, b)
     B, S, C = a.shape
     h = torch.empty_like(a)

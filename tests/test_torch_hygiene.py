@@ -2,6 +2,7 @@
 src/repro_torch/ or chip_smoke.py, and no library attention call in the port."""
 import ast
 import os
+import re
 from pathlib import Path
 
 import pytest
@@ -77,3 +78,18 @@ def test_ssd_products_are_3xtf32_on_tensor_cores():
     launch = src[src.index("ssd_cb_kernel<<<"):]
     grid = launch[:launch.index(">>>")]
     assert "d.nc" in grid and "d.b" in grid and "d.h" not in grid
+
+
+def test_rglru_is_one_chained_kernel():
+    """K3 is one CUDA kernel and one memset a call: tiles taken from an
+    atomic counter (never from blockIdx), the carry handed on through one
+    64-bit word with an acquire load and a release store, and every kernel
+    named rglru_ (the profiler's bucket)."""
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "rglru.cu").read_text()
+    src = re.sub(r"//[^\n]*", "", src)                   # the code, not its notes
+    assert src.count("<<<") == 1 and src.count("cudaMemsetAsync(") == 1
+    assert "atomicAdd(counter" in src and "blockIdx" not in src
+    assert "load(cuda::memory_order_acquire)" in src
+    assert "cuda::memory_order_release" in src and "memory_order_relaxed" not in src
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src)
+    assert names and all(name.startswith("rglru_") for name in names), names

@@ -9,6 +9,10 @@ reasons:
   * ops.rglru_scan / the oracles against the JAX kernel and oracle: 1e-5,
     the bound of tests/test_kernels.py:57-67; the same sequential f32
     recurrence (XLA may fuse a*h + b into one rounding), |h| below ~1.
+  * the CUDA kernel's arithmetic, emulated: the same 1e-5 on the sweep, and
+    1e-5 x max(1, max |ref|) at ragged S and with a in (0.99, 1), the
+    bounds chip_smoke.py holds the kernel to on the card. Within a chunk it
+    is the oracle's arithmetic; each chunk boundary adds a few ulps of |h|.
   * rglru_scan_ref against JAX's associative scan and the oracle: 1e-5, as
     tests/test_kernels.py:70-77; products and sums taken in another order.
   * gates: a to 1e-5 relative. softplus(lambda) differs by up to one ulp
@@ -44,6 +48,7 @@ from repro.models import rglru as jrg  # noqa: E402
 from repro_torch.bridge import _tensor  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import rglru as krg  # noqa: E402
 from repro_torch.kernels.rglru import rglru_scan_fwd  # noqa: E402
 from repro_torch.models import rglru  # noqa: E402
 from repro_torch.models.layers import ParamSpec  # noqa: E402
@@ -176,6 +181,83 @@ def test_ops_rglru_scan_rejects_other_devices():
     x = torch.zeros(1, 4, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         ops.rglru_scan(x, x)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's arithmetic (csrc/rglru.cu), emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def test_chunk_is_the_kernels():
+    src = (build.CSRC / "rglru.cu").read_text()
+    assert f"constexpr int T = {krg.CHUNK};" in src
+
+
+def _emulated(a, b, T=krg.CHUNK):
+    """The chained scan's arithmetic: per chunk of T steps the product of the
+    a's and the end state from h = 0, each step a * h then + b, rounded
+    apart; the carry into the next chunk, prod * h_in + end state, rounded
+    the same way; the chunk's outputs from h_in."""
+    B, S, C = a.shape
+    h = torch.empty_like(a)
+    h_in = torch.zeros(B, C)
+    for k0 in range(0, S, T):
+        ac, bc = a[:, k0:k0 + T], b[:, k0:k0 + T]
+        prod, end = torch.ones(B, C), torch.zeros(B, C)
+        x = h_in
+        for t in range(ac.shape[1]):
+            end = ac[:, t] * end + bc[:, t]
+            prod = prod * ac[:, t]
+            x = ac[:, t] * x + bc[:, t]
+            h[:, k0 + t] = x
+        h_in = prod * h_in + end
+    return h
+
+
+@pytest.mark.parametrize("S,C,bt,bc", SWEEP)
+def test_emulated_kernel_matches_oracles_and_jax_kernel(S, C, bt, bc):
+    a, b = _sweep_inputs(S, C)
+    h = _emulated(*_t(a, b))
+    hj = jops.rglru_scan(jnp.asarray(a), jnp.asarray(b), interpret=True,
+                         block_t=bt, block_c=bc)
+    np.testing.assert_allclose(h.numpy(), np.asarray(hj), atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jref.rglru_scan_oracle(
+        jnp.asarray(a), jnp.asarray(b))), atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), ref.rglru_scan_oracle(*_t(a, b)).numpy(),
+                               atol=1e-5)
+
+
+def _near_one_inputs(S, C):
+    """a in (0.99, 1), b = 0.1 N: h carries across many chunks."""
+    rng = np.random.RandomState(7)
+    a = (1.0 - 0.01 / (1.0 + np.exp(-rng.randn(2, S, C)))).astype(np.float32)
+    return a, (rng.randn(2, S, C) * 0.1).astype(np.float32)
+
+
+@pytest.mark.parametrize("S,C,near_one", [(63, 16, False), (64, 16, False),
+                                          (65, 16, False), (2049, 16, False),
+                                          (2048, 64, True)])
+def test_emulated_kernel_across_chunks(S, C, near_one):
+    """One short of a chunk, one chunk, one past it, one past 32 chunks;
+    and 32 chunks with a in (0.99, 1), where every carry matters."""
+    a, b = _near_one_inputs(S, C) if near_one else _sweep_inputs(S, C)
+    want = ref.rglru_scan_oracle(*_t(a, b))
+    scale = max(1.0, float(want.abs().max()))
+    h = _emulated(*_t(a, b))
+    assert float((h - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("B,S,C,words", [
+    (4, 2048, 4096, 4 * 31 * 4096),     # the recurrentgemma-9b serving shape
+    (1, 16384, 4096, 255 * 4096),
+    (2, 65, 130, 2 * 130),
+    (2, 64, 130, 0), (1, 1, 7, 0),      # one chunk: the counter alone
+])
+def test_scratch_floats_hold_the_counter_and_a_word_per_handoff(B, S, C, words):
+    """8 bytes of tile counter, then one 8-byte word per (b, chunk, channel)
+    for every chunk but the last; 4.06 MB at the serving shape."""
+    assert krg.scratch_floats(B, S, C) == 2 * (1 + words)
+    if (B, S, C) == (4, 2048, 4096):
+        assert 4 * krg.scratch_floats(B, S, C) == 4_063_240
 
 
 def test_library_path_of_rglru():
