@@ -17,7 +17,16 @@ a kernel's plain version:
              every head dim, S of 1, 80, 200, 328, 2049 and 3000, GQA 1, 2
              and 16, Sq != Sk and causal, windowed and non-causal masks
              (3e-2);
-             and the f32 sweep of tests/test_kernels.py (2e-5);
+             and the f32 sweep of tests/test_kernels.py (2e-5); with the
+             optional lse: o bit-equal with and without it, lse against the
+             plain logsumexp (1e-5 f32, 1e-2 bf16), the time with and
+             without it at gemma global;
+             flash_attention_bwd: the same 22-case sweep in bf16 and f32 and
+             the training shapes (gemma3-4b global and window 1024 at B 2,
+             recurrentgemma-9b's local layer), against the plain backward
+             (relative to max(1, max |ref|): f32 1e-4, bf16 2e-2 against
+             the bf16 inputs upcast to f32); 20 calls bit-equal; its time
+             beside the bound, the plain backward and SDPA's backward;
              ssd: the f32 sweep of tests/test_kernels.py (2e-3), the
              served widths (p 64, n 128, chunk 256) at b 1, h 4 and s of
              1, 100, 300 and 2049 (a chunk shorter than a 64-row tile,
@@ -44,7 +53,19 @@ a kernel's plain version:
              sequence): 48 ssd launches per prefill; recurrentgemma-9b
              (window 2048: the decode checks at 2049 and 2080 tokens run
              the window mask and wrap the ring): 26 rglru_scan and 12
-             flash_attention launches per prefill; none in decode
+             flash_attention launches per prefill; none in decode; no
+             backward launch
+  5. grad    a full-width two-layer gemma3-4b (one local, one global layer,
+             B 1, S 2048) in f32: the gradient from K1's forward and backward
+             against a Richardson-extrapolated central difference of the
+             loss along random directions over every leaf and over the
+             attention leaves (1e-2 relative)
+  6. train   gemma3-4b at full width and depth, B 2 x S 2048 from the
+             port's data, remat full, 6 AdamW steps: finite losses and
+             gnorms, per step exactly the K1 forwards (34 + 30 recomputed)
+             and backwards (34) remat full implies, no K2 or K3 launch;
+             ssd and rglru_scan refuse autograd on the card; step time,
+             tokens/s, peak memory and a profiler window of one step
 Prints the kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -90,6 +111,33 @@ DECODE_RTOL = 0.1
 # conv histories and the attention k/v) in the dtype they are given.
 F32_REPLAY = {SSM_ARCH}
 F32_DECODE_RTOL = 1e-3
+
+
+# the forward's bf16 sweep (hd, BKV, G, Sq, Sk, causal, window): every head
+# dim (swizzle 32, 64 and 128 B; 1, 2 and 4 boxes a row), S ragged against
+# both the 64-key and the 128-row tiles, GQA 1, 2 and 16, Sq != Sk both ways,
+# and causal, windowed and non-causal masks
+FLASH_CASES = []
+for _hd in (16, 32, 64, 128, 256):
+    FLASH_CASES += [(_hd, 2, 1, 80, 80, False, 0), (_hd, 2, 2, 200, 200, True, 0),
+                    (_hd, 1, 16, 2049, 2049, True, 1000)]
+FLASH_CASES += [(256, 2, 2, 200, 328, False, 0), (128, 2, 2, 328, 200, True, 150),
+                (64, 2, 2, 80, 200, True, 0), (32, 2, 2, 200, 200, False, 64),
+                (256, 1, 16, 2049, 2049, False, 0),
+                # one row and one key; one row over many keys
+                (16, 1, 1, 1, 1, True, 0), (256, 2, 2, 1, 3000, False, 0)]
+
+# K1's backward against the plain backward, relative to max(1, max |ref|) per
+# tensor: f32 against the plain backward in f32 (summation order; the
+# kernel's f32 products are scalar FMAs); bf16 against the plain backward on
+# the same bf16 inputs upcast to f32, so the tolerance covers the bf16
+# rounding of o, P and dS before their products (2^-9 relative each). The
+# bf16 bound was 5e-2 until the first card run measured at most 5.4e-3 over
+# the sweep and the training shapes; it is 2e-2 since.
+BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the training shapes: gemma3-4b at B 2 (global and window 1024) and
+# recurrentgemma-9b's local layer (16 q heads over one kv head, window 2048)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6
 
 
 def fail(msg):
@@ -165,19 +213,22 @@ def ptxas_usage(text):
     return {name: "; ".join(lines) for name, lines in usage.items()}
 
 
-# the served instance of K1: the bf16 kernel at head dim 256
+# the served instance of K1: the bf16 kernel at head dim 256; and the trained
+# instances of its backward's two main kernels
 K1_SERVED_ENTRY = ("flash_fwd_bf16_kernel", "ILi256E")
+K1_BWD_ENTRIES = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 
 
 def phase_build():
-    """Build every source; returns the ptxas lines of K1's served instance."""
+    """Build every source; returns the ptxas lines of K1's served instance
+    and {kernel: ptxas lines} of its backward's bf16 hd-256 instances."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     try:
         info = build.build_all()
     except RuntimeError as e:
         fail(str(e))
-    served = None
+    served, bwd = None, {}
     for name, item in info.items():
         usage = ptxas_usage(item["log"])
         log(f"[build] {name}: {item['seconds']:.1f}s nvcc -> {item['path'].name}; "
@@ -198,13 +249,17 @@ def phase_build():
             if all(part in entry for part in K1_SERVED_ENTRY):
                 served = lines
                 log(f"[build] flash_attention bf16 hd 256 ({entry}): {lines}")
+            for kernel in K1_BWD_ENTRIES:
+                if kernel in entry and "__nv_bfloat16Li256E" in entry:
+                    bwd[kernel] = lines
+                    log(f"[build] flash_attention_bwd {kernel} bf16 hd 256: {lines}")
     log(f"[build] all sources in {time.perf_counter() - t0:.1f}s")
-    return served
+    return served, bwd
 
 
 def phase_kernels(torch, ptxas_served):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -240,26 +295,13 @@ def phase_kernels(torch, ptxas_served):
     log(f"[kernels] flash_attention sweep: f32 max err {sweep_err['float32']:.3g} "
         f"(tol 2e-5), bf16 {sweep_err['bfloat16']:.3g} (tol 3e-2)")
 
-    # bf16 across what the TMA / wgmma design can get wrong: every head dim
-    # (swizzle 32, 64 and 128 B; 1, 2 and 4 boxes a row), S ragged against
-    # both the 64-key and the 128-row tiles, GQA 1, 2 and 16, Sq != Sk both
-    # ways, and causal, windowed and non-causal masks
-    # (hd, BKV, G, Sq, Sk, causal, window)
-    cases = []
-    for hd in HEAD_DIMS:
-        cases += [(hd, 2, 1, 80, 80, False, 0), (hd, 2, 2, 200, 200, True, 0),
-                  (hd, 1, 16, 2049, 2049, True, 1000)]
-    cases += [(256, 2, 2, 200, 328, False, 0), (128, 2, 2, 328, 200, True, 150),
-              (64, 2, 2, 80, 200, True, 0), (32, 2, 2, 200, 200, False, 64),
-              (256, 1, 16, 2049, 2049, False, 0),
-              # one row and one key; one row over many keys
-              (16, 1, 1, 1, 1, True, 0), (256, 2, 2, 1, 3000, False, 0)]
+    # bf16 across what the TMA / wgmma design can get wrong
     wide_err = 0.0
-    for hd, BKV, G, Sq, Sk, causal, window in cases:
+    for hd, BKV, G, Sq, Sk, causal, window in FLASH_CASES:
         err = check(*inputs(BKV, G, Sq, hd, torch.bfloat16, Sk), causal, window, 3e-2,
                     f"bf16 hd{hd} kv{BKV} G{G} Sq{Sq} Sk{Sk} causal={causal} window={window}")
         wide_err = max(wide_err, err)
-    log(f"[kernels] flash_attention bf16 sweep, {len(cases)} cases (every head dim, "
+    log(f"[kernels] flash_attention bf16 sweep, {len(FLASH_CASES)} cases (every head dim, "
         f"ragged S, GQA 1/2/16, Sq != Sk, three masks): max err {wide_err:.3g} (tol 3e-2)")
 
     # the serving shapes, B 4, S 2048, hd 256, bf16: gemma3-4b's (H 8, KV 4)
@@ -324,6 +366,208 @@ def phase_kernels(torch, ptxas_served):
         "f32_sweep_max_abs_err": sweep_err["float32"],
         "bf16_sweep_max_abs_err": max(sweep_err["bfloat16"], wide_err),
         "ptxas_bf16_hd256": ptxas_served,
+        "per_launch": per,
+    }
+
+
+def attention_bwd_bound_ms(q, k, causal, window):
+    """Least time of one backward: the five products of a kept pair (S, dP,
+    dV, dK, dQ: 10 hd FLOP a pair per q head, 2.5x the forward's) at the
+    bf16 or f32 peak, against q, k, v, o, dO and lse read once and dQ, dK,
+    dV written once."""
+    BH, Sq, hd = q.shape
+    flops = 10 * BH * attention_pairs(Sq, k.shape[1], causal, window) * hd
+    nbytes = (6 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * BH * Sq
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]]
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def sdpa_backend(torch, q4, k4, v4, mask, is_causal):
+    """The SDPA backend PyTorch picks for this call (torch._fused_sdp_choice),
+    or why it could not be read."""
+    from torch.nn.attention import SDPBackend
+    try:
+        choice = torch._fused_sdp_choice(q4, k4, v4, attn_mask=mask, dropout_p=0.0,
+                                         is_causal=is_causal, enable_gqa=True)
+        return SDPBackend(choice).name
+    except Exception as e:                        # noqa: BLE001 - reported, not relied on
+        return f"not read ({type(e).__name__}: {e})"[:120]
+
+
+def phase_kernels_flash_lse(torch):
+    """K1's forward with the optional lse: o bit-equal with and without it,
+    lse against the plain logsumexp of the masked scores (1e-5 f32, 1e-2
+    bf16, absolute), and the time with and without it at gemma global."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.configs.registry import get_config
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    tol = {"float32": 1e-5, "bfloat16": 1e-2}
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = [(hd, BKV, G, Sq, Sk, c, w, "bfloat16") for hd, BKV, G, Sq, Sk, c, w in FLASH_CASES]
+    cases += [(32, 4, 2, S, S, c, w, "float32") for S, c, w in
+              [(64, True, 0), (96, True, 0), (64, True, 16), (128, False, 0), (80, True, 24)]]
+    cases += [(hd, BKV, G, Sq, Sk, c, w, "float32") for hd, BKV, G, Sq, Sk, c, w in
+              FLASH_CASES if Sq * Sk * BKV * G <= 2 ** 24]
+    for hd, BKV, G, Sq, Sk, causal, window, dt in cases:
+        dtype = getattr(torch, dt)
+        mk = lambda n, s: torch.randn(n, s, hd, generator=g, device="cuda").to(dtype)  # noqa: E731
+        q, k, v = mk(BKV * G, Sq), mk(BKV, Sk), mk(BKV, Sk)
+        o = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        o2, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+        torch.cuda.synchronize()
+        what = f"{dt} hd{hd} kv{BKV} G{G} Sq{Sq} Sk{Sk} causal={causal} window={window}"
+        if not torch.equal(o, o2):
+            fail(f"flash_attention lse {what}: o differs with and without lse")
+        _, want = ref.flash_attention_oracle(q.float(), k.float(), v.float(), causal=causal,
+                                             window=window, return_lse=True)
+        err = (lse - want).abs().max().item()
+        if not math.isfinite(err) or err > tol[dt]:
+            fail(f"flash_attention lse {what}: max abs err {err:.3g} > {tol[dt]}")
+        worst[dt] = max(worst[dt], err)
+    log(f"[kernels] flash_attention lse, {len(cases)} cases: o bit-equal with and without "
+        f"lse; lse max abs err f32 {worst['float32']:.3g} (tol 1e-5), bf16 "
+        f"{worst['bfloat16']:.3g} (tol 1e-2)")
+    cfg = get_config(ARCH)
+    G = cfg.num_heads // cfg.num_kv_heads
+    mk = lambda n: torch.randn(n, PROMPT, cfg.head_dim, generator=g,  # noqa: E731
+                               device="cuda").to(torch.bfloat16)
+    q, k, v = mk(BATCH * cfg.num_heads), mk(BATCH * cfg.num_kv_heads), mk(BATCH * cfg.num_kv_heads)
+    times = {}
+    for label in ("without lse", "with lse", "with lse ", "without lse "):   # in turns
+        with_lse = label.startswith("with ")
+        times.setdefault(label.strip(), []).append(cuda_ms(
+            torch, lambda: flash_attention_fwd(q, k, v, causal=True, return_lse=with_lse)))
+    ms = {k_: statistics.mean(v_) for k_, v_ in times.items()}
+    log(f"[kernels] flash_attention gemma global (B {BATCH}, S {PROMPT}), in turns: "
+        f"{ms['without lse']:.4f} ms without lse, {ms['with lse']:.4f} ms with lse "
+        f"({ms['with lse'] / ms['without lse'] - 1:+.1%})")
+    return {"cases": len(cases), "lse_max_abs_err": worst, "o_bit_equal": True,
+            "gemma_global_ms": ms}
+
+
+def phase_kernels_flash_bwd(torch, ptxas_bwd):
+    """K1's backward against the plain backward over the forward's sweep
+    (both dtypes) and the training shapes; 20 calls bit-equal; times."""
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def inputs(hd, BKV, G, Sq, Sk, dtype):
+        mk = lambda n, s: torch.randn(n, s, hd, generator=g, device="cuda").to(dtype)  # noqa: E731
+        return mk(BKV * G, Sq), mk(BKV, Sk), mk(BKV, Sk), mk(BKV * G, Sq)
+
+    def check(q, k, v, do, causal, window, what):
+        """Errors of dq, dk, dv relative to max(1, max |ref|)."""
+        dt = str(q.dtype).split(".")[-1]
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        torch.cuda.synchronize()
+        qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+        of, lsef = ref.flash_attention_oracle(qf, kf, vf, causal=causal, window=window,
+                                              return_lse=True)
+        want = ref.flash_attention_bwd_oracle(qf, kf, vf, of, lsef, dof, causal=causal,
+                                              window=window)
+        errs = []
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            if x.shape != y.shape or x.dtype != q.dtype:
+                fail(f"flash_attention_bwd {what}: {name} is {tuple(x.shape)} {x.dtype}")
+            rel = (x.float() - y).abs().max().item() / max(1.0, y.abs().max().item())
+            if not math.isfinite(rel) or rel > BWD_RTOL[dt]:
+                fail(f"flash_attention_bwd {what}: {name} err {rel:.3g} x max(1, max |ref|) "
+                     f"> {BWD_RTOL[dt]}")
+            errs.append(rel)
+        return max(errs)
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for hd, BKV, G, Sq, Sk, causal, window in FLASH_CASES:
+        for dt in ("bfloat16", "float32"):
+            err = check(*inputs(hd, BKV, G, Sq, Sk, getattr(torch, dt)), causal, window,
+                        f"{dt} hd{hd} kv{BKV} G{G} Sq{Sq} Sk{Sk} causal={causal} "
+                        f"window={window}")
+            worst[dt] = max(worst[dt], err)
+    log(f"[kernels] flash_attention_bwd sweep, {len(FLASH_CASES)} cases x (bf16, f32): max "
+        f"err x max(1, max |ref|) bf16 {worst['bfloat16']:.3g} (tol "
+        f"{BWD_RTOL['bfloat16']}), f32 {worst['float32']:.3g} (tol {BWD_RTOL['float32']})")
+
+    cfg, rg = get_config(ARCH), get_config(RG_ARCH)
+    per = {}
+    for label, c, window in (("global", cfg, 0), ("local", cfg, cfg.local_window),
+                             (f"{RG_ARCH} local", rg, rg.local_window)):
+        G = c.num_heads // c.num_kv_heads
+        BKV = TRAIN_BATCH * c.num_kv_heads
+        shape = (c.head_dim, BKV, G, TRAIN_SEQ, TRAIN_SEQ)
+        errs = {dt: check(*inputs(*shape, getattr(torch, dt)), True, window,
+                          f"training shape {label} {dt}") for dt in ("bfloat16", "float32")}
+        for dt, e in errs.items():
+            worst[dt] = max(worst[dt], e)
+        q, k, v, do = inputs(*shape, torch.bfloat16)
+        o, lse = flash_attention_fwd(q, k, v, causal=True, window=window, return_lse=True)
+        run = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True,  # noqa: E731
+                                          window=window)
+        entry = {"window": window, "heads": c.num_heads, "kv_heads": c.num_kv_heads,
+                 "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "max_rel_err": errs}
+        if label == "global":
+            # no atomics: every call gives the same bits
+            outs = [run() for _ in range(20)]
+            torch.cuda.synchronize()
+            if not all(all(torch.equal(a, b) for a, b in zip(x, outs[0])) for x in outs):
+                fail("flash_attention_bwd: 20 back-to-back calls at gemma global differ")
+            del outs
+            log("[kernels] flash_attention_bwd gemma global: 20 back-to-back calls bit-equal")
+        ms = cuda_ms(torch, run)
+        plain_ms = cuda_ms(torch, lambda: ref.flash_attention_bwd_oracle(
+            q, k, v, o, lse, do, causal=True, window=window), reps=5)
+        # yardstick only: the backward of one PyTorch SDPA call on the same inputs
+        q4, k4, v4 = (x.view(TRAIN_BATCH, -1, TRAIN_SEQ, c.head_dim).detach().requires_grad_()
+                      for x in (q, k, v))
+        do4 = do.view(q4.shape)
+        mask = None
+        if 0 < window < TRAIN_SEQ:
+            pos = torch.arange(TRAIN_SEQ, device="cuda")
+            d = pos[:, None] - pos[None, :]
+            mask = (d >= 0) & (d < window)
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                              is_causal=mask is None, enable_gqa=True)
+        library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            out4, (q4, k4, v4), do4, retain_graph=True))
+        backend = sdpa_backend(torch, q4, k4, v4, mask, mask is None)
+        del out4, q4, k4, v4
+        bound_ms, bound_by = attention_bwd_bound_ms(q, k, True, window)
+        entry.update({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      "sdpa_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "bound_share": bound_ms / ms, "vs_library": ms / library_ms})
+        per[label] = entry
+        log(f"[kernels] flash_attention_bwd {label} (B {TRAIN_BATCH}, S {TRAIN_SEQ}, window "
+            f"{window}): err bf16 {errs['bfloat16']:.3g}, f32 {errs['float32']:.3g}; "
+            f"{ms:.4f} ms (plain {plain_ms:.3f}, SDPA backward {library_ms:.4f} by "
+            f"{backend}, bound {bound_ms:.4f} by {bound_by}); {bound_ms / ms:.1%} of the "
+            f"bound, {ms / library_ms:.2f}x SDPA's time")
+        del q, k, v, do, o, lse
+    n_local = sum(kind == "local" for kind in cfg.layer_kinds)
+    n_global = sum(kind == "global" for kind in cfg.layer_kinds)
+    per_step = {key: n_global * per["global"][key] + n_local * per["local"][key]
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:72",
+        "replaces_note": "the gradient of K1's function, which the JAX package "
+                         "takes through XLA (no custom_vjp)",
+        "launches": None,                     # filled in from the train phase
+        "max_abs_err": max(worst.values()),
+        "max_err_is": "relative to max(1, max |ref|) per tensor",
+        **per_step, "bound_by": "+".join(sorted({per[x]["bound_by"] for x in per})),
+        "times_are": f"per {ARCH} train step (B {TRAIN_BATCH}, S {TRAIN_SEQ}): "
+                     f"{n_global} global + {n_local} local launches; {RG_ARCH} per "
+                     "launch under per_launch",
+        "sweep_max_rel_err": worst, "ptxas_bf16_hd256": ptxas_bwd,
         "per_launch": per,
     }
 
@@ -617,11 +861,11 @@ def phase_kernels_rglru(torch):
 
 
 def _launch_counters():
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
     from repro_torch.kernels.rglru import rglru_scan_fwd
     from repro_torch.kernels.ssd import ssd_fwd
-    return {"flash_attention": flash_attention_fwd, "ssd": ssd_fwd,
-            "rglru_scan": rglru_scan_fwd}
+    return {"flash_attention": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
+            "ssd": ssd_fwd, "rglru_scan": rglru_scan_fwd}
 
 
 def phase_serve(torch, arch, per_prefill):
@@ -635,6 +879,8 @@ def phase_serve(torch, arch, per_prefill):
     counters = _launch_counters()
     want = {name: per_prefill.get(name, 0) for name in counters}
     cfg = get_config(arch)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()         # left by earlier phases
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda", seed=SEED)
     torch.cuda.synchronize()
@@ -699,7 +945,8 @@ def phase_serve(torch, arch, per_prefill):
         f"({BATCH * PROMPT / t_prefill:.0f} tok/s); decode {STEPS} steps: "
         f"{t_decode * 1e3 / STEPS:.3f} ms/step ({tok_s:.1f} tok/s); "
         f"launches in prefill {launches}; peak memory "
-        f"{peak / 2**30:.2f} GiB ({peak} bytes)")
+        f"{peak / 2**30:.2f} GiB ({peak} bytes, of which {before} allocated before "
+        "the model was made)")
     log(f"[serve] {arch} sample output ids: {torch.cat(toks, 1)[0, :16].tolist()}")
     with torch.inference_mode():
         profile_serving(torch, prefill, decode, sample_token, prompt, min(8, STEPS),
@@ -772,6 +1019,8 @@ NAMED_BUCKETS = ("ssd", "rglru")
 def _bucket(name):
     if "flash_fwd_" in name:
         return "flash_attention"
+    if "flash_bwd_" in name:
+        return "flash_attention_bwd"
     if "ssd_" in name:
         return "ssd"
     if "rglru_" in name:
@@ -786,35 +1035,60 @@ def _short(kernel_name):
     return kernel_name.replace("void ", "").replace("at::native::", "")[:100]
 
 
+def profile_window(torch, fn):
+    """torch.profiler over fn(): (fn's result, wall seconds, {bucket: device
+    us}, device operations, {bucket: [(us, count, kernel)]} of the "other"
+    bucket's five largest and every kernel of NAMED_BUCKETS)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    buckets, by_name, n_ops = {}, {}, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        bucket = _bucket(e.key)
+        buckets[bucket] = buckets.get(bucket, 0.0) + us
+        by_name.setdefault(bucket, []).append((us, e.count, e.key))
+        n_ops += e.count
+    named = {k: sorted(v, reverse=True)[:None if k in NAMED_BUCKETS else 5]
+             for k, v in by_name.items() if k in NAMED_BUCKETS or k == "other"}
+    return out, wall, buckets, n_ops, named
+
+
+def log_window(arch, what, wall, b, n, named):
+    """Print one profiler window: kernel time by bucket, busy and idle share,
+    and the named kernels. Returns {bucket: ms} (empty if not measured)."""
+    busy = sum(b.values()) / 1e3
+    if not busy:
+        log(f"[profile] {arch} {what}: device time not measured (the profiler "
+            "saw no kernels)")
+        return {}
+    parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / 1e3 / busy:.1%})"
+                      for k, v in sorted(b.items(), key=lambda kv: -kv[1]))
+    log(f"[profile] {arch} {what}: wall {wall * 1e3:.3f} ms, kernels {busy:.3f} ms "
+        f"(busy {busy / (wall * 1e3):.1%}, idle {1 - busy / (wall * 1e3):.1%}), "
+        f"{n} device operations; {parts}")
+    for bucket, kernels in sorted(named.items()):
+        log(f"[profile] {arch} {what}, "
+            + ("largest in other: " if bucket == "other" else f"{bucket} kernels: ")
+            + "; ".join(f"{_short(key)} x{count} {us / 1e3:.3f} ms"
+                        for us, count, key in kernels))
+    return {k: v / 1e3 for k, v in b.items()}
+
+
 def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch):
     """Where the device time goes: torch.profiler over one prefill and over
     `steps` decode steps; kernel time by bucket, the five largest kernels of
     the "other" bucket and every kernel of the buckets in NAMED_BUCKETS by
     name, and kernel time over the window's wall time (the device's busy
     share; the rest is idle)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def window(fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        buckets, by_name, n_ops = {}, {}, 0
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            bucket = _bucket(e.key)
-            buckets[bucket] = buckets.get(bucket, 0.0) + us
-            by_name.setdefault(bucket, []).append((us, e.count, e.key))
-            n_ops += e.count
-        named = {k: sorted(v, reverse=True)[:None if k in NAMED_BUCKETS else 5]
-                 for k, v in by_name.items() if k in NAMED_BUCKETS or k == "other"}
-        return out, wall, buckets, n_ops, named
 
     def decode_steps(cache, tok):
         for _ in range(steps):
@@ -822,25 +1096,195 @@ def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch):
             tok = sample_token(logits)
         return cache
 
-    (logits, cache), *prefill_window = window(lambda: prefill(prompt))
-    _, *decode_window = window(lambda: decode_steps(cache, sample_token(logits)))
-    for what, (wall, b, n, named) in (("prefill", prefill_window),
-                                      (f"decode x{steps}", decode_window)):
-        busy = sum(b.values()) / 1e3
-        if not busy:
-            log(f"[profile] {arch} {what}: device time not measured (the profiler "
-                "saw no kernels)")
-            continue
-        parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / 1e3 / busy:.1%})"
-                          for k, v in sorted(b.items(), key=lambda kv: -kv[1]))
-        log(f"[profile] {arch} {what}: wall {wall * 1e3:.3f} ms, kernels {busy:.3f} ms "
-            f"(busy {busy / (wall * 1e3):.1%}, idle {1 - busy / (wall * 1e3):.1%}), "
-            f"{n} device operations; {parts}")
-        for bucket, kernels in sorted(named.items()):
-            log(f"[profile] {arch} {what}, "
-                + ("largest in other: " if bucket == "other" else f"{bucket} kernels: ")
-                + "; ".join(f"{_short(key)} x{count} {us / 1e3:.3f} ms"
-                            for us, count, key in kernels))
+    (logits, cache), *prefill_window = profile_window(torch, lambda: prefill(prompt))
+    _, *decode_window = profile_window(torch, lambda: decode_steps(cache, sample_token(logits)))
+    for what, window in (("prefill", prefill_window), (f"decode x{steps}", decode_window)):
+        log_window(arch, what, *window)
+
+
+# the model-level gradient check: |FD - <g, v>| <= FD_RTOL |<g, v>|. Along a
+# random direction of ~850 M weights <g, v> is ~1e-5, so a step of FD_STEP of
+# the norm of the weights it moves changes a loss of 12.5 by ~1e-5: ten f32
+# ulps of it. The loss of the difference is therefore Model.loss's formula
+# reduced in f64 from the model's f32 logits (_loss64), and the central
+# difference is extrapolated from steps eps and eps / 2 (Richardson:
+# (4 D(eps/2) - D(eps)) / 3, error O(eps^4)).
+FD_RTOL, FD_STEP = 1e-2, 1e-3
+
+
+def _loss64(torch, model, batch):
+    """Model.loss's total (CE + 1e-4 z-loss; aux is 0) reduced in f64 from
+    the model's f32 logits."""
+    logits = model.apply(batch["tokens"]).double()
+    labels = batch["labels"]
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).double()
+    n = mask.sum().clamp_min(1.0)
+    return ((nll * mask).sum() / n + 1e-4 * (lse.square() * mask).sum() / n).item()
+
+
+def _unit_direction(torch, params, names, g):
+    """A random direction over the leaves `names`: each leaf's draw scaled
+    to norm 1, the whole to norm 1 (so that small leaves weigh as much as
+    the embedding)."""
+    v = {}
+    for k in names:
+        x = torch.randn(params[k].shape, generator=g, device="cuda", dtype=torch.float32)
+        v[k] = x / x.norm()
+    return {k: x / len(v) ** 0.5 for k, x in v.items()}
+
+
+def phase_grad_check(torch):
+    """Full-width, two-layer gemma3-4b (one local, one global layer; B 1,
+    S 2048, so the window is live) in f32: the gradient from K1's forward and
+    backward kernels against a central finite difference of the loss along
+    random directions, over every leaf and over the attention leaves alone
+    (whose gradient reaches them only through K1's dq, dk and dv). The
+    forwards of the difference run K1 without autograd."""
+    from repro_torch.configs.base import GLOBAL_ATTN, LOCAL_ATTN
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import Model
+    from repro_torch.train.data import DataConfig, make_batch
+
+    counters = _launch_counters()
+    cfg = get_config(ARCH).replace(name=f"{ARCH}-2layer", num_layers=2,
+                                   superblock=(LOCAL_ATTN, GLOBAL_ATTN), sb_repeat=1,
+                                   remainder=())
+    model = Model(cfg, device="cuda", seed=SEED, trainable=True).float()
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                  global_batch=1), 0, device="cuda")
+    for fn in counters.values():
+        fn.launches = 0
+    loss, _ = model.loss(batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    got = {name: fn.launches for name, fn in counters.items()}
+    want = {"flash_attention": 2, "flash_attention_bwd": 2, "ssd": 0, "rglru_scan": 0}
+    if got != want:
+        fail(f"gradient check: launches {got}, want {want}")
+    params = dict(model.named_parameters())
+    grads = {k: p.grad.detach().clone() for k, p in params.items()}
+    orig = {k: p.detach().clone() for k, p in params.items()}
+    model.zero_grad(set_to_none=True)
+    L0 = loss.item()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    out = {}
+    for label, names in (("every leaf", sorted(params)),
+                         ("attention leaves", sorted(k for k in params if ".attn." in k))):
+        v = _unit_direction(torch, params, names, g)
+        gv = sum((grads[k].double() * v[k].double()).sum() for k in names).item()
+        eps = FD_STEP * sum(orig[k].double().square().sum() for k in names).sqrt().item()
+
+        def central(e):
+            side = {}
+            with torch.no_grad():
+                for sign in (1, -1):
+                    for k in names:
+                        params[k].copy_(orig[k] + sign * e * v[k])
+                    side[sign] = _loss64(torch, model, batch)
+                for k in names:
+                    params[k].copy_(orig[k])
+            return (side[1] - side[-1]) / (2 * e)
+
+        d1, d2 = central(eps), central(eps / 2)
+        fd = (4 * d2 - d1) / 3
+        rel = abs(fd - gv) / abs(gv)
+        out[label] = {"leaves": len(names), "eps": eps, "fd": fd, "fd_eps": d1,
+                      "fd_eps_half": d2, "grad_dot_v": gv, "rel_err": rel}
+        log(f"[grad] {cfg.name} f32 (B 1, S {TRAIN_SEQ}), direction over {label} "
+            f"({len(names)}): <g, v> {gv:.6g}, FD {fd:.6g} (central {d1:.6g} at eps "
+            f"{eps:.4g}, {d2:.6g} at eps / 2; loss {L0:.6f}); rel err {rel:.3g} "
+            f"(tol {FD_RTOL})")
+        if not (math.isfinite(rel) and rel <= FD_RTOL):
+            fail(f"gradient check over {label}: FD {fd:.6g} vs <g, v> {gv:.6g}, rel err "
+                 f"{rel:.3g} > {FD_RTOL}")
+    del model, params, grads, orig, v, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(torch, card):
+    """Train gemma3-4b at full width and depth, the serve phase's config:
+    TRAIN_STEPS steps of B TRAIN_BATCH x S TRAIN_SEQ from the port's data,
+    remat full, one microbatch. Gates: finite losses and gnorms; per step
+    the K1 launches remat full implies (a forward per layer, again for each
+    layer of the rematted superblocks, and a backward per layer); no K2 or
+    K3 launch. Returns the launches of the run."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.train.data import DataConfig, DataIterator
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    # no plain version under autograd on the card: K2 and K3 have no backward
+    for name, fn, args in (("ssd", ops.ssd, [(1, 64, 2, 16), (1, 64, 2), (2,), (1, 64, 8),
+                                             (1, 64, 8)]),
+                           ("rglru_scan", ops.rglru_scan, [(1, 64, 8), (1, 64, 8)])):
+        xs = [torch.rand(*sh, device="cuda", requires_grad=True) for sh in args]
+        try:
+            fn(*xs)
+        except NotImplementedError as e:
+            log(f"[train] {name} under autograd on the card raises: {e}")
+        else:
+            fail(f"{name} ran under autograd on the card (no backward kernel)")
+
+    cfg = get_config(ARCH)
+    counters = _launch_counters()
+    n_layers = cfg.num_layers
+    n_remat = len(cfg.superblock) * cfg.sb_repeat
+    want = {"flash_attention": n_layers + n_remat, "flash_attention_bwd": n_layers,
+            "ssd": 0, "rglru_scan": 0}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=SEED, trainable=True)
+    par = ParallelConfig(remat="full", microbatches=1)
+    step_fn = make_train_step(model, OptConfig(lr=1e-4, warmup_steps=2, total_steps=100), par)
+    state = init_train_state(model)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated()
+    log(f"[train] {cfg.name}: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params, "
+        f"state (bf16 params, f32 mu and nu) {state_bytes / 1e9:.2f} GB, made in "
+        f"{time.perf_counter() - t0:.1f}s")
+    it = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                 global_batch=TRAIN_BATCH), device="cuda")
+    for fn in counters.values():                   # the main path's run starts here
+        fn.launches = 0
+    losses, gnorms, times = [], [], []
+    for i in range(TRAIN_STEPS):
+        before = {name: fn.launches for name, fn in counters.items()}
+        batch = next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["gnorm"]))
+        per_step = {name: fn.launches - before[name] for name, fn in counters.items()}
+        if per_step != want:
+            fail(f"train step {i}: launches {per_step}, want {want}")
+        log(f"[train] step {i}: loss {losses[-1]:.6f}, gnorm {gnorms[-1]:.6g}, "
+            f"lr {metrics['lr']:.3g}, {times[-1] * 1e3:.2f} ms")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"train: non-finite loss or gnorm: {losses}, {gnorms}")
+    step_ms = statistics.median(times[1:]) * 1e3
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    log(f"[train] {cfg.name} B {TRAIN_BATCH} x S {TRAIN_SEQ}, remat full, {TRAIN_STEPS} "
+        f"steps: losses {[round(x, 6) for x in losses]}; median step (steps 2-"
+        f"{TRAIN_STEPS}) {step_ms:.2f} ms, {tok_s:.0f} tokens/s; peak memory "
+        f"{peak / 1e9:.2f} GB ({peak} bytes); launches {launches}; {card}")
+    _, *window = profile_window(torch, lambda: step_fn(state, next(it)))
+    buckets = log_window(cfg.name, "train step", *window)
+    del model, state, step_fn, it, batch, metrics
+    torch.cuda.empty_cache()
+    return {"losses": losses, "gnorms": gnorms, "step_ms": step_ms, "tokens_per_s": tok_s,
+            "peak_bytes": peak, "state_bytes": state_bytes, "launches": launches,
+            "step_times_ms": [t * 1e3 for t in times], "profile_ms": buckets}
 
 
 def main(argv=None):
@@ -860,12 +1304,14 @@ def main(argv=None):
         return 2
     sys.path.insert(0, SRC)
     card = phase_device(torch)
-    ptxas_served = phase_build()
+    ptxas_served, ptxas_bwd = phase_build()
     flash = phase_kernels(torch, ptxas_served)
+    flash["lse"] = phase_kernels_flash_lse(torch)
+    flash_bwd = phase_kernels_flash_bwd(torch, ptxas_bwd)
     ssd = phase_kernels_ssd(torch)
     scan = phase_kernels_rglru(torch)
     if args.kernels_only:
-        log(json.dumps({"kernels": [flash, ssd, scan]}))
+        log(json.dumps({"kernels": [flash, flash_bwd, ssd, scan]}))
         log(card)
         return 0
     from repro_torch.configs.registry import get_config
@@ -881,12 +1327,20 @@ def main(argv=None):
     by_arch[RG_ARCH] = phase_serve(torch, RG_ARCH, {
         "rglru_scan": count(RG_ARCH, "rglru"),
         "flash_attention": count(RG_ARCH, "local")})
-    flash["launches_by_arch"] = {a: n["flash_attention"] for a, n in by_arch.items()
+    torch.cuda.empty_cache()
+    grad = phase_grad_check(torch)
+    train = phase_train(torch, card)
+    flash["launches_by_path"] = {f"serve {a}": n["flash_attention"] for a, n in by_arch.items()
                                  if n["flash_attention"]}
-    flash["launches"] = sum(flash["launches_by_arch"].values())
+    flash["launches_by_path"][f"train {ARCH}"] = train["launches"]["flash_attention"]
+    flash["launches"] = sum(flash["launches_by_path"].values())
+    flash_bwd["launches"] = train["launches"]["flash_attention_bwd"]
+    flash_bwd["launches_by_path"] = {f"train {ARCH}": flash_bwd["launches"]}
+    flash_bwd["grad_check"] = grad
+    flash_bwd["train"] = {k: v for k, v in train.items() if k != "launches"}
     ssd["launches"] = by_arch[SSM_ARCH]["ssd"]
     scan["launches"] = by_arch[RG_ARCH]["rglru_scan"]
-    log(json.dumps({"kernels": [flash, ssd, scan]}))
+    log(json.dumps({"kernels": [flash, flash_bwd, ssd, scan]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Weight (and cache) bridge from the JAX package's pytrees to the port.
+"""Weight, optimizer-state and cache bridge from the JAX package's pytrees
+to the port.
 
 The JAX model stacks the superblock's layers along a leading ``layers`` axis
 (``blocks/sb/slot{i}``, one entry per repeat) and keeps the remainder as
@@ -66,6 +67,17 @@ def from_jax_params(tree, cfg, device=None) -> dict[str, torch.Tensor]:
     ``model.load_state_dict(..., strict=True)``)."""
     device = resolve_device(device)
     return {k: _tensor(v, device) for k, v in _unstack(tree, cfg).items()}
+
+
+def from_jax_opt_state(opt_state, cfg, device=None):
+    """JAX ``OptState`` (step, mu, nu; leaves as numpy) -> the port's
+    ``OptState``, mu and nu unstacked as ``from_jax_params`` unstacks params."""
+    from repro_torch.train.optimizer import OptState
+    device = resolve_device(device)
+    step, mu, nu = opt_state
+    return OptState(step=int(np.asarray(step)),
+                    mu={k: _tensor(v, device) for k, v in _unstack(mu, cfg).items()},
+                    nu={k: _tensor(v, device) for k, v in _unstack(nu, cfg).items()})
 
 
 def from_jax_cache(tree, cfg, device=None) -> dict:

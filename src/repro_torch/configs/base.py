@@ -1,7 +1,8 @@
-"""Model configuration schema (the port's copy of ``repro/configs/base.py``).
+"""Model and parallel configuration schema (the port's copy of
+``repro/configs/base.py``).
 
-Only ``ModelConfig`` and the layer-kind constants are needed so far; the
-shape, parallel and system configs come with the slices that use them.
+``ModelConfig``, the layer-kind constants and ``ParallelConfig`` so far; the
+shape and system configs come with the slices that use them.
 """
 from __future__ import annotations
 
@@ -148,4 +149,49 @@ class ModelConfig:
         return n
 
     def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# what each ParallelConfig value that needs a mesh waits for
+_NEEDS_MESH = "a device mesh (ROADMAP queue 1, item 5)"
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Software-system knobs (sharding strategy etc.): the JAX package's
+    fields and defaults. On one device the trainer reads ``remat``,
+    ``microbatches`` and ``grad_compression``; the sharding knobs (fsdp,
+    model_axis, seq_shard, moe_strategy, scan_layers, seq_shard_cache) change
+    nothing without a mesh. Values that need one raise: int8 gradient
+    compression, pipeline stages, and any attention implementation but the
+    default (the port has one per device: K1 on CUDA, its plain version on
+    the CPU)."""
+    fsdp: bool = True                # shard big params over the data axis too
+    model_axis: str = "tp"           # tp | zero3 (what the model axis does)
+    seq_shard: bool = True           # sequence-parallel activation constraints
+    remat: str = "dots"              # none | dots | full
+    microbatches: int = 1            # gradient-accumulation microbatches
+    grad_compression: bool = False   # int8 all-reduce with error feedback
+    attn_impl: str = "xla"           # xla | pallas | interpret
+    moe_strategy: str = "auto"       # auto | ep | tp
+    pipeline_stages: int = 1         # >1: GPipe over the "pod" axis
+    scan_layers: bool = True
+    # decode-time
+    seq_shard_cache: bool = False    # shard KV cache over data axis (long ctx)
+
+    def __post_init__(self):
+        if self.grad_compression:
+            raise NotImplementedError(f"grad_compression needs {_NEEDS_MESH}")
+        if self.pipeline_stages > 1:
+            raise NotImplementedError(f"pipeline_stages > 1 needs {_NEEDS_MESH}")
+        if self.attn_impl != "xla":
+            raise NotImplementedError(
+                f"attn_impl={self.attn_impl!r}: the port has one attention "
+                f"implementation per device; others need {_NEEDS_MESH}")
+        if self.remat not in ("none", "dots", "full"):
+            raise ValueError(f"remat must be none, dots or full; got {self.remat!r}")
+        if self.microbatches < 1:
+            raise ValueError(f"microbatches must be >= 1; got {self.microbatches}")
+
+    def replace(self, **kw) -> "ParallelConfig":
         return dataclasses.replace(self, **kw)

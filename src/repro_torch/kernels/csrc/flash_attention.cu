@@ -12,6 +12,10 @@
 //   exactly 0, so a row that has seen no valid key yet carries l = 0,
 //   acc = 0 (a row with no valid key at all comes out 0; the wrapper
 //   refuses such calls).
+//   Optionally also lse (BH, Sq) f32, the row's logsumexp of the scaled
+//   scores, m + log(l) from the softmax statistics the epilogue holds anyway
+//   (the backward, flash_attention_bwd.cu, recomputes P from it). Serving
+//   passes a null pointer; o is the same either way.
 //
 // What bounds it: at the serving shapes (hd 256, S 2048, causal or a window
 // of 1024 or 2048, GQA 2 or 16) a launch does 5e10-1.4e11 FLOP of Q.K^T and
@@ -489,7 +493,7 @@ template <int HD>
 __global__ void __launch_bounds__(BF16_THREADS, 1)
 flash_fwd_bf16_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
                       __grid_constant__ const CUtensorMap tv, __grid_constant__ const CUtensorMap to,
-                      int BH, int G,
+                      float* __restrict__ lse, int BH, int G,
                       int Sq, int Sk, int causal, int window, float scale_log2) {
   using L = Smem<HD>;
   extern __shared__ unsigned char smem_raw[];
@@ -669,6 +673,15 @@ flash_fwd_bf16_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ 
           l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
           l_run[r] = fmaxf(l_run[r], 1e-37f);
         }
+        // lse = ln 2 (m + log2 l): m and the exponents are in log2 units
+        if (lse != nullptr && t == 0) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = row0 + 8 * r;
+            if (row < Sq)
+              lse[(size_t)bh * Sq + row] = (m_run[r] + log2f(l_run[r])) * 0.69314718055994531f;
+          }
+        }
         // The swizzle XORs a box row's 16-byte chunk index with x, bits 7 and
         // up of the row's offset; box b of column chunk j sits b * BOX further.
         unsigned char* qs = smem_raw + (q_tile - smem_u32(smem_raw));
@@ -747,7 +760,7 @@ cudaError_t tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, in
 }
 
 template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int BH, int BKV,
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int BKV,
                         int Sq, int Sk, int causal, int window, float scale, cudaStream_t stream) {
   EncodeTiled encode;
   cudaError_t err = encoder(&encode);
@@ -767,7 +780,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
     return err;
   const long long work = (long long)BH * ((Sq + BM - 1) / BM);   // q tiles, one block per SM
   flash_fwd_bf16_kernel<HD><<<(unsigned)(work < sms ? work : sms), BF16_THREADS, smem, stream>>>(
-      tq, tk, tv, to, BH, BH / BKV, Sq, Sk, causal, window,
+      tq, tk, tv, to, lse, BH, BH / BKV, Sq, Sk, causal, window,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -809,7 +822,7 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int 
 template <int HD>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
+                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                      int G, int Sq, int Sk, int causal, int window, float scale) {
   constexpr int LD = f32_ld<HD>();
   constexpr int NT = BN / 8;                      // 8-key column tiles of S
@@ -927,6 +940,13 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     l_run[r] = fmaxf(l_run[r], 1e-37f);
   }
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = row0 + 8 * r;
+      if (qp < Sq) lse[(size_t)bh * Sq + qp] = m_run[r] + logf(l_run[r]);
+    }
+  }
   float* ob = o + (size_t)bh * Sq * HD;
 #pragma unroll
   for (int n = 0; n < OT; ++n)
@@ -938,7 +958,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int BH, int BKV,
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int BKV,
                        int Sq, int Sk, int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<HD>,
@@ -947,15 +967,16 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   const dim3 grid(BH, (Sq + F32_BM - 1) / F32_BM);
   flash_fwd_f32_kernel<HD><<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), BH / BKV, Sq, Sk, causal, window, scale);
+      static_cast<float*>(o), lse, BH / BKV, Sq, Sk, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch(int is_bf16, const void* q, const void* k, const void* v, void* o, int BH,
-                   int BKV, int Sq, int Sk, int causal, int window, float scale, cudaStream_t s) {
-  return is_bf16 ? launch_bf16<HD>(q, k, v, o, BH, BKV, Sq, Sk, causal, window, scale, s)
-                 : launch_f32<HD>(q, k, v, o, BH, BKV, Sq, Sk, causal, window, scale, s);
+cudaError_t launch(int is_bf16, const void* q, const void* k, const void* v, void* o, float* lse,
+                   int BH, int BKV, int Sq, int Sk, int causal, int window, float scale,
+                   cudaStream_t s) {
+  return is_bf16 ? launch_bf16<HD>(q, k, v, o, lse, BH, BKV, Sq, Sk, causal, window, scale, s)
+                 : launch_f32<HD>(q, k, v, o, lse, BH, BKV, Sq, Sk, causal, window, scale, s);
 }
 
 }  // namespace
@@ -964,19 +985,20 @@ extern "C" {
 
 // q (BH, Sq, hd), k/v (BKV, Sk, hd), o (BH, Sq, hd), all contiguous and
 // 16-byte aligned on the current device. is_bf16: 1 for bf16, 0 for f32.
+// lse: null, or (BH, Sq) f32 for the rows' logsumexp (both paths write it).
 // Launches on `stream` without synchronising; returns cudaGetLastError()
 // (or the error of building the bf16 path's tensor maps).
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                         int BH, int BKV, int Sq, int Sk, int hd, int is_bf16,
                         int causal, int window, float scale, void* stream) {
   if (BH <= 0 || BKV <= 0 || BH % BKV != 0 || Sq <= 0 || Sk <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16>(is_bf16, q, k, v, o, BH, BKV, Sq, Sk, causal, window, scale, s);
-    case 32: return launch<32>(is_bf16, q, k, v, o, BH, BKV, Sq, Sk, causal, window, scale, s);
-    case 64: return launch<64>(is_bf16, q, k, v, o, BH, BKV, Sq, Sk, causal, window, scale, s);
-    case 128: return launch<128>(is_bf16, q, k, v, o, BH, BKV, Sq, Sk, causal, window, scale, s);
-    case 256: return launch<256>(is_bf16, q, k, v, o, BH, BKV, Sq, Sk, causal, window, scale, s);
+    case 16: return launch<16>(is_bf16, q, k, v, o, lse, BH, BKV, Sq, Sk, causal, window, scale, s);
+    case 32: return launch<32>(is_bf16, q, k, v, o, lse, BH, BKV, Sq, Sk, causal, window, scale, s);
+    case 64: return launch<64>(is_bf16, q, k, v, o, lse, BH, BKV, Sq, Sk, causal, window, scale, s);
+    case 128: return launch<128>(is_bf16, q, k, v, o, lse, BH, BKV, Sq, Sk, causal, window, scale, s);
+    case 256: return launch<256>(is_bf16, q, k, v, o, lse, BH, BKV, Sq, Sk, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,10 +1,13 @@
-"""Flash attention forward on Hopper: wrapper of ``csrc/flash_attention.cu``.
+"""Flash attention on Hopper: wrappers of ``csrc/flash_attention.cu`` (the
+forward) and ``csrc/flash_attention_bwd.cu`` (its gradient).
 
-The CUDA kernel replaces the TPU kernel
+The forward kernel replaces the TPU kernel
 ``src/repro/kernels/flash_attention.py::flash_attention_tpu`` and computes
 the same function (causal / sliding window / GQA, f32 softmax statistics);
-its source says what bounds it and how it is tiled. Its plain version is
-``kernels/ref.py::flash_attention_oracle``.
+the backward computes that function's gradient, which the JAX package takes
+through XLA. Each source says what bounds it and how it is tiled. Their
+plain versions are ``kernels/ref.py::flash_attention_oracle`` and
+``flash_attention_bwd_oracle``.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ def _library():
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -63,9 +66,38 @@ def grid_fits(BH, Sq, Sk, dtype):
     return q_tiles <= MAX_GRID_Y
 
 
-def _check(q, k, v, causal, window):
+def _bwd_library():
+    lib = build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# the backward's tiles: q rows (BM) and keys (Tiles<HD>::BN) per tile, and
+# rows per block of the D kernel (WARPS), in csrc/flash_attention_bwd.cu
+BWD_Q_ROWS, BWD_ROWS_PER_BLOCK = 64, 8
+
+
+def bwd_keys_per_tile(hd):
+    return 32 if hd >= 256 else 64
+
+
+def bwd_blocks(BH, BKV, Sq, Sk, hd):
+    """The most blocks any of the backward's three kernels launches for a
+    call (each grid is one-dimensional): q tiles per head, kv tiles per kv
+    head, and blocks of rows of the D kernel."""
+    return max(BH * -(-Sq // BWD_Q_ROWS), BKV * -(-Sk // bwd_keys_per_tile(hd)),
+               -(-(BH * Sq) // BWD_ROWS_PER_BLOCK))
+
+
+def _check(q, k, v, causal, window, what="flash_attention_fwd"):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention_fwd runs on one CUDA device; got "
+        raise ValueError(f"{what} runs on one CUDA device; got "
                          f"q on {q.device}, k on {k.device}, v on {v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes must all be float32 or bfloat16; got "
@@ -92,29 +124,82 @@ def _check(q, k, v, causal, window):
                          "some query rows see no valid key")
 
 
-def flash_attention_fwd(q, k, v, *, scale=None, causal=True, window=0):
+def flash_attention_fwd(q, k, v, *, scale=None, causal=True, window=0,
+                        return_lse=False):
     """q (BH,Sq,hd); k/v (BKV,Sk,hd) with BH = BKV*G, on a CUDA device.
 
-    Returns (BH,Sq,hd) in q's dtype. Launches the kernel on the current
-    stream and adds one to ``flash_attention_fwd.launches``."""
+    Returns (BH,Sq,hd) in q's dtype, and with ``return_lse`` also the rows'
+    logsumexp of the scaled, masked scores (BH,Sq) in f32, which the
+    backward takes. Launches the kernel on the current stream and adds one
+    to ``flash_attention_fwd.launches``."""
     _check(q, k, v, causal, window)
     BH, Sq, hd = q.shape
     BKV, Sk, _ = k.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
+    lse = (torch.empty(BH, Sq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None,
             BH, BKV, Sq, Sk, hd, _DTYPES[q.dtype], int(bool(causal)),
             int(window), float(scale), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("flash_attention_fwd launch failed: "
                            + lib.flash_attention_error_string(err).decode())
     flash_attention_fwd.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=0):
+    """Gradient of ``flash_attention_fwd`` on a CUDA device.
+
+    q, o, do (BH,Sq,hd); k/v (BKV,Sk,hd); lse (BH,Sq) f32 from the forward
+    with ``return_lse``. Takes the calls the forward takes and refuses the
+    rest. Returns (dq, dk, dv) in q's dtype, dk and dv summed over each kv
+    head's G query heads. Launches its three kernels on the current stream
+    and adds one to ``flash_attention_bwd.launches``."""
+    _check(q, k, v, causal, window, "flash_attention_bwd")
+    BH, Sq, hd = q.shape
+    BKV, Sk, _ = k.shape
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} must match q: got {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if (lse.shape != (BH, Sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be ({BH}, {Sq}) contiguous float32 on "
+                         f"{q.device}; got {tuple(lse.shape)} {lse.dtype}")
+    if bwd_blocks(BH, BKV, Sq, Sk, hd) > INT32_MAX:
+        raise ValueError(f"BH {BH}, Sq {Sq}, Sk {Sk}: past the backward "
+                         "kernels' 32-bit grids")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty(BH, Sq, dtype=torch.float32, device=q.device)
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), BH, BKV, Sq, Sk, hd, _DTYPES[q.dtype],
+            int(bool(causal)), int(window), float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError("flash_attention_bwd launch failed: "
+                           + lib.flash_attention_bwd_error_string(err).decode())
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

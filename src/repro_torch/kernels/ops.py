@@ -3,30 +3,81 @@
 They adapt the model's layouts to the kernels' and dispatch on the device of
 the tensors: a CUDA tensor launches the Hopper kernel, a CPU tensor takes the
 kernel's plain version in ``ref.py``. Counterpart of ``src/repro/kernels/ops.py``.
+
+``flash_attention`` is differentiable: when autograd needs its gradient it
+runs as ``FlashAttention``, whose forward also keeps the rows' logsumexp and
+whose backward is K1's backward kernel (the plain backward on the CPU).
+``ssd`` and ``rglru_scan`` have no backward kernel yet: on a CUDA tensor
+they refuse to run under autograd rather than fall back to their plain,
+differentiable versions.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                 flash_attention_fwd)
 from repro_torch.kernels.rglru import rglru_scan_fwd
 from repro_torch.kernels.ssd import ssd_fwd
 
 
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 in the kernels' layout, q (BH,Sq,hd), k/v (BKV,Sk,hd): the forward
+    saves q, k, v, o and the f32 lse; the backward returns dq, dk, dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        if q.device.type == "cuda":
+            o, lse = flash_attention_fwd(q, k, v, scale=scale, causal=causal,
+                                         window=window, return_lse=True)
+        else:
+            o, lse = ref.flash_attention_oracle(q, k, v, scale=scale, causal=causal,
+                                                window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, scale = ctx.args
+        fn = flash_attention_bwd if q.device.type == "cuda" else ref.flash_attention_bwd_oracle
+        dq, dk, dv = fn(q, k, v, o, lse, do.contiguous(), scale=scale, causal=causal,
+                        window=window)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
-    """Model layout q (B,S,KV,G,hd); k/v (B,Sk,KV,hd) -> (B,S,KV,G,hd)."""
+    """Model layout q (B,S,KV,G,hd); k/v (B,Sk,KV,hd) -> (B,S,KV,G,hd).
+
+    Under autograd the kernels' layout is reached by differentiable reshapes,
+    so dq, dk and dv come back in the model layout."""
     B, S, KV, G, hd = q.shape
     Sk = k.shape[1]
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
     qf = q.movedim(1, 3).reshape(B * KV * G, S, hd).contiguous()
     kf = k.movedim(1, 2).reshape(B * KV, Sk, hd).contiguous()
     vf = v.movedim(1, 2).reshape(B * KV, Sk, hd).contiguous()
-    if q.device.type == "cuda":
-        fn = flash_attention_fwd
-    elif q.device.type == "cpu":
-        fn = ref.flash_attention_oracle
+    if _needs_grad(q, k, v):
+        o = FlashAttention.apply(qf, kf, vf, causal, window, scale)
     else:
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    o = fn(qf, kf, vf, scale=scale, causal=causal, window=window)
+        fn = flash_attention_fwd if q.device.type == "cuda" else ref.flash_attention_oracle
+        o = fn(qf, kf, vf, scale=scale, causal=causal, window=window)
     return o.reshape(B, KV, G, S, hd).movedim(3, 1)
+
+
+def _no_backward(name, item, *tensors):
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel yet ({item}); on a CUDA device it "
+            "runs only without autograd (torch.no_grad, or inputs that do not "
+            "require grad)")
 
 
 def rglru_scan(a, b):
@@ -34,6 +85,8 @@ def rglru_scan(a, b):
 
     Both go to contiguous float32 first, as the TPU kernel does; its block
     sizes shape only the TPU grid and have no counterpart here."""
+    if a.device.type == "cuda":
+        _no_backward("rglru_scan", "ROADMAP queue 2, K3's backward", a, b)
     a, b = a.float().contiguous(), b.float().contiguous()
     if a.device.type == "cuda":
         return rglru_scan_fwd(a, b)
@@ -47,6 +100,8 @@ def ssd(x, dt, A, B, C, *, chunk=256):
 
     Everything goes to float32 first, as the TPU kernel does; ``chunk``
     only shapes the CUDA kernel's work (the plain version is sequential)."""
+    if x.device.type == "cuda":
+        _no_backward("ssd", "ROADMAP queue 2, K2's backward", x, dt, A, B, C)
     x, dt, A, B, C = (t.float().contiguous() for t in (x, dt, A, B, C))
     if x.device.type == "cuda":
         return ssd_fwd(x, dt, A, B, C, chunk=chunk)

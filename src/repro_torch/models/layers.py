@@ -44,17 +44,19 @@ class ParamSpec:
 
 
 class ParamTree(nn.Module):
-    """A nested dict of ParamSpecs as a module of raw parameters."""
+    """A nested dict of ParamSpecs as a module of raw parameters. They take
+    grads only when ``trainable`` (serving keeps them frozen)."""
 
-    def __init__(self, specs: dict, generator: torch.Generator, device):
+    def __init__(self, specs: dict, generator: torch.Generator, device,
+                 trainable: bool = False):
         super().__init__()
         for key in sorted(specs):
             spec = specs[key]
             if isinstance(spec, ParamSpec):
                 self.register_parameter(key, nn.Parameter(
-                    spec.materialize(generator, device), requires_grad=False))
+                    spec.materialize(generator, device), requires_grad=trainable))
             else:
-                self.add_module(key, ParamTree(spec, generator, device))
+                self.add_module(key, ParamTree(spec, generator, device, trainable))
 
     def __getitem__(self, key):
         return getattr(self, key)

@@ -10,16 +10,26 @@ superblock layers (leading ``layers`` axis) becomes one ``ParamTree`` per
 layer, layer r*len(superblock)+i for slot i of repeat r, then the
 remainder. ``bridge.from_jax_params`` maps one onto the other.
 
-API: apply (full-sequence logits), prefill (last-position logits + decode
-cache), init_cache, decode_step (one token), memory_len.
+API: apply (full-sequence logits), loss (next-token CE), prefill
+(last-position logits + decode cache), init_cache, decode_step (one token),
+memory_len.
+
+Under autograd each repeat of the superblock can be rematerialized
+(``Ctx.remat``, the counterpart of ``_maybe_remat``): ``full`` saves only
+its input and recomputes the rest in the backward; ``dots`` also saves the
+outputs of the weight products. The remainder layers are never rematted, as
+in the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import CROSS_ATTN, ENC_ATTN, RGLRU, SSD, ModelConfig
 from repro_torch.device import resolve_device
@@ -55,9 +65,11 @@ _MIXERS = {
 
 @dataclasses.dataclass
 class Ctx:
-    """Per-call context, the counterpart of the JAX package's ``Ctx``. It is
-    empty so far: the port has one implementation of each mixer and no mesh;
-    the sharding hook and remat policy come with the slices that use them."""
+    """Per-call context, the counterpart of the JAX package's ``Ctx``: the
+    remat policy of the superblock body under autograd (none | dots | full).
+    The port has one implementation of each mixer and no mesh, so it has no
+    ``attn_impl`` and no sharding hook."""
+    remat: str = "none"
 
 
 # ---------------------------------------------------------------------------
@@ -144,21 +156,24 @@ def _materialize(specs, device):
 
 class Model(nn.Module):
     """The decoder with its parameters, seeded from ``seed`` on ``device``
-    (``None`` means ``cuda``; the CPU only when asked for). Inference only:
-    parameters do not require grad. ``apply`` shadows ``nn.Module.apply``
-    on purpose, to keep the JAX package's API names."""
+    (``None`` means ``cuda``; the CPU only when asked for). Parameters
+    require grad only when ``trainable``; serving leaves them frozen.
+    ``apply`` shadows ``nn.Module.apply`` on purpose, to keep the JAX
+    package's API names."""
 
-    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
+                 trainable: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         g = torch.Generator(device=device).manual_seed(seed)
-        self.embed = ParamTree(embed_specs(cfg.vocab_size, cfg.d_model), g, device)
-        self.final_norm = ParamTree(rms_norm_specs(cfg.d_model), g, device)
+        tree = functools.partial(ParamTree, generator=g, device=device,
+                                 trainable=trainable)
+        self.embed = tree(embed_specs(cfg.vocab_size, cfg.d_model))
+        self.final_norm = tree(rms_norm_specs(cfg.d_model))
         if not cfg.tie_embeddings:
-            self.unembed = ParamTree(
-                {"table": ParamSpec((cfg.vocab_size, cfg.d_model))}, g, device)
-        self.layers = nn.ModuleList(ParamTree(layer_specs(cfg, kind), g, device)
+            self.unembed = tree({"table": ParamSpec((cfg.vocab_size, cfg.d_model))})
+        self.layers = nn.ModuleList(tree(layer_specs(cfg, kind))
                                     for kind in cfg.layer_kinds)
 
     @property
@@ -175,10 +190,31 @@ class Model(nn.Module):
         h = embed_apply(self.embed, tokens, cfg.d_model)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         caches = []
-        for p, kind in zip(self.layers, cfg.layer_kinds):
-            h, c = apply_layer(p, h, kind, cfg, ctx, positions=positions,
-                               collect_cache=collect_cache, cache_len=cache_len)
+
+        nsb = len(cfg.superblock)
+
+        def layer(i, h):
+            h, c = apply_layer(self.layers[i], h, cfg.layer_kinds[i], cfg, ctx,
+                               positions=positions, collect_cache=collect_cache,
+                               cache_len=cache_len)
             caches.append(c)
+            return h
+
+        def superblock(h, r):
+            for i in range(r * nsb, (r + 1) * nsb):
+                h = layer(i, h)
+            return h
+
+        # rematted repeats first; then every other layer one by one, so that
+        # no layer's input outlives the layer where nothing is rematted
+        remat = None if collect_cache else _maybe_remat(superblock, ctx)
+        start = 0
+        if remat is not None:
+            for r in range(cfg.sb_repeat):
+                h = remat(h, r)
+            start = nsb * cfg.sb_repeat
+        for i in range(start, cfg.num_layers):
+            h = layer(i, h)
         return rms_norm(h, self.final_norm["scale"], cfg.norm_eps), caches
 
     # -- full-sequence forward ----------------------------------------------
@@ -189,6 +225,28 @@ class Model(nn.Module):
 
     def forward(self, tokens, ctx=None):
         return self.apply(tokens, ctx)
+
+    # -- loss ----------------------------------------------------------------
+    def loss(self, batch, ctx=None):
+        """batch: {tokens (B,S), labels (B,S) (-1 = pad)}. Returns
+        (total, {ce, aux, zloss, ntok}): next-token CE over f32 logits, a
+        1e-4 z-loss on the log normalizer, and 0.01 aux (0: no ported arch
+        has experts). The label logit is gathered, which gives the same
+        numbers as the JAX package's gather-free select-and-sum."""
+        if batch.get("memory") is not None:
+            raise NotImplementedError(f"{_NOT_PORTED['encdec']} is not ported yet")
+        logits = self.apply(batch["tokens"], ctx).float()
+        labels = batch["labels"]
+        lse = torch.logsumexp(logits, dim=-1)                         # (B,S)
+        sel = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+        nll = lse - sel
+        mask = (labels >= 0).float()
+        ntok = mask.sum().clamp_min(1.0)
+        ce = (nll * mask).sum() / ntok
+        zloss = 1e-4 * (lse.square() * mask).sum() / ntok
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        total = ce + zloss + 0.01 * aux
+        return total, {"ce": ce, "aux": aux, "zloss": zloss, "ntok": ntok}
 
     # -- prefill / decode -----------------------------------------------------
     def prefill(self, tokens, cache_len, ctx=None):
@@ -220,8 +278,47 @@ class Model(nn.Module):
         logits = unembed_apply(self._table(), h, cfg.logits_soft_cap)[:, 0]
         return logits, {"pos": pos + 1, "layers": cache["layers"]}
 
+    def stacked_ndims(self) -> dict:
+        """{parameter name: its ndim in the JAX package's layout}, where the
+        superblock's layers are stacked on a leading ``layers`` axis: one more
+        than the port's for those layers. AdamW decays leaves of ndim >= 2,
+        so in both packages the vectors of stacked layers (norm scales,
+        biases) decay and those of the remainder layers do not."""
+        stacked = len(self.cfg.superblock) * self.cfg.sb_repeat
+        out = {}
+        for name, p in self.named_parameters():
+            parts = name.split(".")
+            out[name] = p.dim() + (parts[0] == "layers" and int(parts[1]) < stacked)
+        return out
+
     def memory_len(self):
         """Length of the stub frontend memory: 0, since no ported arch has
         cross-attention (vlm and encoder-decoder archs raise above)."""
         return 0
 
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """``dots``: keep the outputs of products with no batch dimensions (the
+    weight products: mm, addmm, and the bmm with a batch of one that einsum
+    makes of them), as ``checkpoint_dots_with_no_batch_dims`` does; recompute
+    everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(body, ctx):
+    """One superblock repeat ``body(h, r)`` wrapped in the remat policy, or
+    None where nothing is rematted: remat none, or no autograd (nothing is
+    saved then)."""
+    if ctx.remat not in ("none", "dots", "full"):
+        raise ValueError(f"remat must be none, dots or full; got {ctx.remat!r}")
+    if ctx.remat == "none" or not torch.is_grad_enabled():
+        return None
+    if ctx.remat == "full":
+        return lambda *a: checkpoint(body, *a, use_reentrant=False)
+    context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   _save_weight_products)
+    return lambda *a: checkpoint(body, *a, use_reentrant=False, context_fn=context_fn)

@@ -93,3 +93,61 @@ def test_rglru_is_one_chained_kernel():
     assert "cuda::memory_order_release" in src and "memory_order_relaxed" not in src
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src)
     assert names and all(name.startswith("rglru_") for name in names), names
+
+
+def _device_defaults(tree):
+    """(where, default) of every ``device`` parameter with a default and
+    every ``--device`` flag of a file."""
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            args = node.args.posonlyargs + node.args.args
+            pairs = list(zip(args[len(args) - len(node.args.defaults):], node.args.defaults))
+            pairs += [(a, d) for a, d in zip(node.args.kwonlyargs, node.args.kw_defaults) if d]
+            for arg, default in pairs:
+                if arg.arg == "device":
+                    yield f"{node.name}(device=)", ast.literal_eval(default)
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument"
+              and node.args and getattr(node.args[0], "value", None) == "--device"):
+            for kw in node.keywords:
+                if kw.arg == "default":
+                    yield "--device", ast.literal_eval(kw.value)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, ROOT))
+def test_device_defaults_are_the_card(path):
+    """Every ``device`` parameter and ``--device`` flag of the port defaults
+    to ``None`` (resolved to cuda) or to ``cuda``: the CPU only when asked."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(w, d) for w, d in _device_defaults(tree) if d not in (None, "cuda")]
+    assert not bad, f"{path}: {bad}"
+
+
+def test_device_default_rule_catches_cpu():
+    tree = ast.parse("def f(x, device='cpu'):\n    pass\n"
+                     "def g(*, device=None):\n    pass\n"
+                     "ap.add_argument('--device', default='cpu')\n")
+    assert sorted(_device_defaults(tree)) == [("--device", "cpu"), ("f(device=)", "cpu"),
+                                              ("g(device=)", None)]
+
+
+TRAIN_MODULES = ("repro_torch.train.optimizer", "repro_torch.train.data",
+                 "repro_torch.train.train_step", "repro_torch.train.checkpoint",
+                 "repro_torch.train.fault", "repro_torch.launch.train",
+                 "repro_torch.kernels.ops", "repro_torch.configs.base")
+
+
+@pytest.mark.parametrize("module", TRAIN_MODULES)
+def test_training_modules_import_without_a_gpu_or_nvcc(module, tmp_path):
+    """Kernel sources build only at first use, so each module of the training
+    path imports on a machine with no GPU and no nvcc, and imports neither
+    JAX nor the JAX package while doing so."""
+    import subprocess
+    import sys
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys, {module}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
