@@ -23,10 +23,14 @@ a kernel's plain version:
              without it at gemma global;
              flash_attention_bwd: the same 22-case sweep in bf16 and f32 and
              the training shapes (gemma3-4b global and window 1024 at B 2,
-             recurrentgemma-9b's local layer), against the plain backward
-             (relative to max(1, max |ref|): f32 1e-4, bf16 2e-2 against
-             the bf16 inputs upcast to f32); 20 calls bit-equal; its time
-             beside the bound, the plain backward and SDPA's backward;
+             recurrentgemma-9b's local layer, where the dK/dV kernel splits
+             the 16 query heads), against the plain backward (relative to
+             max(1, max |ref|): f32 1e-4, bf16 2e-2 against the bf16 inputs
+             upcast to f32); 20 calls bit-equal at gemma global and at
+             recurrentgemma local; its time beside the bound, the plain
+             backward and SDPA's backward (its backend recorded, as for the
+             forward's SDPA yardstick); each bf16 backward kernel's ptxas
+             registers and spills at every head dim;
              ssd: the f32 sweep of tests/test_kernels.py (2e-3), the
              served widths (p 64, n 128, chunk 256) at b 1, h 4 and s of
              1, 100, 300 and 2049 (a chunk shorter than a 64-row tile,
@@ -165,6 +169,21 @@ def cuda_ms(torch, fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+def back_to_back_ms(torch, fn, calls=20):
+    """Milliseconds a call over `calls` calls launched back to back between
+    one pair of CUDA events: the host enqueues faster than the card runs
+    them, so this is device time, gaps between calls included."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def attention_pairs(Sq, Sk, causal, window):
     """(q, k) pairs the mask keeps: the work this call's data needs."""
     n = 0
@@ -213,15 +232,15 @@ def ptxas_usage(text):
     return {name: "; ".join(lines) for name, lines in usage.items()}
 
 
-# the served instance of K1: the bf16 kernel at head dim 256; and the trained
-# instances of its backward's two main kernels
+# the served instance of K1: the bf16 kernel at head dim 256; and the bf16
+# kernels of its backward, an instance per head dim
 K1_SERVED_ENTRY = ("flash_fwd_bf16_kernel", "ILi256E")
-K1_BWD_ENTRIES = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+K1_BWD_ENTRIES = ("flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel")
 
 
 def phase_build():
     """Build every source; returns the ptxas lines of K1's served instance
-    and {kernel: ptxas lines} of its backward's bf16 hd-256 instances."""
+    and {"<kernel> hd <hd>": ptxas lines} of its backward's bf16 instances."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     try:
@@ -250,9 +269,11 @@ def phase_build():
                 served = lines
                 log(f"[build] flash_attention bf16 hd 256 ({entry}): {lines}")
             for kernel in K1_BWD_ENTRIES:
-                if kernel in entry and "__nv_bfloat16Li256E" in entry:
-                    bwd[kernel] = lines
-                    log(f"[build] flash_attention_bwd {kernel} bf16 hd 256: {lines}")
+                hd = entry.split(kernel + "ILi")[-1].split("E")[0] if kernel in entry else ""
+                if hd.isdigit():
+                    bwd[f"{kernel} hd {hd}"] = lines
+    for key in sorted(bwd, key=lambda x: (x.split(" hd ")[0], int(x.split(" hd ")[1]))):
+        log(f"[build] flash_attention_bwd {key}: {bwd[key]}")
     log(f"[build] all sources in {time.perf_counter() - t0:.1f}s")
     return served, bwd
 
@@ -325,15 +346,14 @@ def phase_kernels(torch, ptxas_served):
         k4 = k.view(BATCH, c.num_kv_heads, PROMPT, c.head_dim)
         v4 = v.view(BATCH, c.num_kv_heads, PROMPT, c.head_dim)
         # a window as long as the prompt masks no more than causality does
+        mask = None
         if 0 < window < PROMPT:
             pos = torch.arange(PROMPT, device="cuda")
             d = pos[:, None] - pos[None, :]
             mask = (d >= 0) & (d < window)
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q4, k4, v4, attn_mask=mask, enable_gqa=True)
-        else:
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q4, k4, v4, is_causal=True, enable_gqa=True)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+        backend = sdpa_backend(torch, q4, k4, v4, mask, mask is None)
         lib_err = (lib().reshape(q.shape).float()
                    - flash_attention_fwd(q, k, v, causal=True, window=window).float()
                    ).abs().max().item()
@@ -344,9 +364,9 @@ def phase_kernels(torch, ptxas_served):
                       "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "bound_share": bound_ms / ms, "vs_library": ms / library_ms,
-                      "library_vs_kernel_max_abs_diff": lib_err}
+                      "library_vs_kernel_max_abs_diff": lib_err, "sdpa_backend": backend}
         log(f"[kernels] flash_attention {label} (window {window}): err {err:.3g}, "
-            f"{ms:.4f} ms (plain {plain_ms:.3f}, SDPA {library_ms:.4f}, "
+            f"{ms:.4f} ms (plain {plain_ms:.3f}, SDPA {library_ms:.4f} by {backend}, "
             f"bound {bound_ms:.4f} by {bound_by}); {bound_ms / ms:.1%} of the bound, "
             f"{ms / library_ms:.2f}x SDPA's time")
     n_local = sum(kind == "local" for kind in cfg.layer_kinds)
@@ -513,14 +533,15 @@ def phase_kernels_flash_bwd(torch, ptxas_bwd):
                                           window=window)
         entry = {"window": window, "heads": c.num_heads, "kv_heads": c.num_kv_heads,
                  "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "max_rel_err": errs}
-        if label == "global":
-            # no atomics: every call gives the same bits
+        if label in ("global", f"{RG_ARCH} local"):
+            # no atomics, and the G split's partials are summed in a fixed
+            # order (recurrentgemma): every call gives the same bits
             outs = [run() for _ in range(20)]
             torch.cuda.synchronize()
             if not all(all(torch.equal(a, b) for a, b in zip(x, outs[0])) for x in outs):
-                fail("flash_attention_bwd: 20 back-to-back calls at gemma global differ")
+                fail(f"flash_attention_bwd: 20 back-to-back calls at {label} differ")
             del outs
-            log("[kernels] flash_attention_bwd gemma global: 20 back-to-back calls bit-equal")
+            log(f"[kernels] flash_attention_bwd {label}: 20 back-to-back calls bit-equal")
         ms = cuda_ms(torch, run)
         plain_ms = cuda_ms(torch, lambda: ref.flash_attention_bwd_oracle(
             q, k, v, o, lse, do, causal=True, window=window), reps=5)
@@ -567,7 +588,7 @@ def phase_kernels_flash_bwd(torch, ptxas_bwd):
         "times_are": f"per {ARCH} train step (B {TRAIN_BATCH}, S {TRAIN_SEQ}): "
                      f"{n_global} global + {n_local} local launches; {RG_ARCH} per "
                      "launch under per_launch",
-        "sweep_max_rel_err": worst, "ptxas_bf16_hd256": ptxas_bwd,
+        "sweep_max_rel_err": worst, "ptxas_bf16": ptxas_bwd,
         "per_launch": per,
     }
 

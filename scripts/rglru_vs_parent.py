@@ -59,21 +59,6 @@ def build_earlier(source):
     return lib, usage
 
 
-def back_to_back_ms(torch, fn, calls=20):
-    """Milliseconds a call over `calls` calls launched back to back between
-    one pair of CUDA events: the host enqueues faster than the card runs
-    them, so this is device time, gaps between calls included."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("sources", nargs="+", help="earlier rglru.cu files")
@@ -81,8 +66,8 @@ def main(argv=None):
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("rglru_vs_parent: no GPU found")
-    from chip_smoke import (BATCH, PROMPT, RG_ARCH, SEED, cuda_ms, device_us_by_kernel,
-                            rglru_bound_ms, rglru_inputs)
+    from chip_smoke import (BATCH, PROMPT, RG_ARCH, SEED, back_to_back_ms, cuda_ms,
+                            device_us_by_kernel, rglru_bound_ms, rglru_inputs)
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru as krg

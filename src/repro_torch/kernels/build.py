@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/<name>-<hash>.so`` at the repository root, where ``<hash>`` covers the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. The libraries expose plain C functions that the kernel
-wrappers call through ``ctypes``. Nothing is built when a module is imported:
+source, every header of ``csrc/`` it includes (``#include "x.cuh"``, followed
+through headers) and the flags, so an edited source or header is rebuilt and
+an unchanged one is loaded as it is. The libraries expose plain C functions
+that the kernel wrappers call through ``ctypes``. Nothing is built when a module is imported:
 the first call of a kernel's wrapper builds its library.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -34,23 +36,48 @@ def nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the local headers it includes, directly or
+    through other headers, in the order they are first included."""
+    order: list[Path] = []
+
+    def visit(path: Path) -> None:
+        if path in order:
+            return
+        order.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_text()):
+            if (path.parent / inc).is_file():
+                visit(path.parent / inc)
+
+    visit(CSRC / f"{name}.cu")
+    return order
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, dict]:
     """Compile every source not yet built, one ``nvcc`` each, all at once.
 
-    Returns {name: {"path", "seconds", "log"}}; ``seconds`` is 0.0 and
-    ``log`` empty for a library that was already built."""
+    Returns {name: {"path", "seconds", "log"}}: ``log`` is nvcc's output
+    (ptxas's registers and spills), kept beside the library as
+    ``<name>-<hash>.log``; ``seconds`` is 0.0 for a library already built."""
     names = sorted(p.stem for p in CSRC.glob("*.cu")) if names is None else names
     out, procs = {}, {}
     for name in names:
         lib = library_path(name)
         if lib.exists():
-            out[name] = {"path": lib, "seconds": 0.0, "log": ""}
+            log = lib.with_suffix(".log")
+            out[name] = {"path": lib, "seconds": 0.0,
+                         "log": log.read_text() if log.exists() else ""}
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -63,6 +90,7 @@ def build_all(names=None) -> dict[str, dict]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu "
                                f"(exit {proc.returncode}):\n{log}")
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)
         out[name] = {"path": lib, "seconds": time.perf_counter() - t0, "log": log}
     return out

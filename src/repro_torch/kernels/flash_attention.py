@@ -78,21 +78,45 @@ def _bwd_library():
     return lib
 
 
-# the backward's tiles: q rows (BM) and keys (Tiles<HD>::BN) per tile, and
-# rows per block of the D kernel (WARPS), in csrc/flash_attention_bwd.cu
-BWD_Q_ROWS, BWD_ROWS_PER_BLOCK = 64, 8
+# the backward's tiles, in csrc/flash_attention_bwd.cu. bf16: a dK/dV block
+# owns BWD_BN keys (64-row q tiles stream past it), a dQ block 128 q rows;
+# f32: 64-row q tiles, 64 keys (32 at hd 256). D takes a block per 8 rows.
+BWD_BN, BWD_DQ_ROWS, BWD_F32_Q_ROWS, BWD_ROWS_PER_BLOCK = 64, 128, 64, 8
+# the G split aims the bf16 dK/dV grid at two waves of 132 SMs
+BWD_MIN_BLOCKS = 256
 
 
-def bwd_keys_per_tile(hd):
+def bwd_f32_keys_per_tile(hd):
     return 32 if hd >= 256 else 64
 
 
-def bwd_blocks(BH, BKV, Sq, Sk, hd):
-    """The most blocks any of the backward's three kernels launches for a
-    call (each grid is one-dimensional): q tiles per head, kv tiles per kv
-    head, and blocks of rows of the D kernel."""
-    return max(BH * -(-Sq // BWD_Q_ROWS), BKV * -(-Sk // bwd_keys_per_tile(hd)),
-               -(-(BH * Sq) // BWD_ROWS_PER_BLOCK))
+def bwd_head_splits(BKV, G, Sk):
+    """Blocks that share a kv tile's G query heads in the bf16 dK/dV kernel
+    (``head_splits`` in the CUDA source): the fewest, a divisor of G, that
+    give the grid BWD_MIN_BLOCKS blocks, or G when none does. A split block
+    writes f32 partial dK and dV that a reduction kernel sums in split order,
+    so every call gives the same bits."""
+    tiles = BKV * -(-Sk // BWD_BN)
+    return next((s for s in range(1, G) if G % s == 0 and tiles * s >= BWD_MIN_BLOCKS), G)
+
+
+def bwd_scratch_floats(BH, BKV, Sq, Sk, hd, dtype):
+    """f32 scratch of one backward call: D for the (BH, Sq) rows, rounded up
+    to 64 floats, then for a split bf16 call the dK and dV partials,
+    2 x splits x (BKV, Sk, hd)."""
+    n = -(-(BH * Sq) // 64) * 64
+    splits = bwd_head_splits(BKV, BH // BKV, Sk) if dtype == torch.bfloat16 else 1
+    return n + (2 * splits * BKV * Sk * hd if splits > 1 else 0)
+
+
+def bwd_blocks(BH, BKV, Sq, Sk, hd, dtype):
+    """The most blocks any of the backward's kernels launches for a call
+    (each grid is one-dimensional; the reduction's grid is capped)."""
+    d_blocks = -(-(BH * Sq) // BWD_ROWS_PER_BLOCK)
+    if dtype == torch.bfloat16:
+        splits = bwd_head_splits(BKV, BH // BKV, Sk)
+        return max(d_blocks, BKV * -(-Sk // BWD_BN) * splits, BH * -(-Sq // BWD_DQ_ROWS))
+    return max(d_blocks, BH * -(-Sq // BWD_F32_Q_ROWS), BKV * -(-Sk // bwd_f32_keys_per_tile(hd)))
 
 
 def _check(q, k, v, causal, window, what="flash_attention_fwd"):
@@ -164,8 +188,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=
     q, o, do (BH,Sq,hd); k/v (BKV,Sk,hd); lse (BH,Sq) f32 from the forward
     with ``return_lse``. Takes the calls the forward takes and refuses the
     rest. Returns (dq, dk, dv) in q's dtype, dk and dv summed over each kv
-    head's G query heads. Launches its three kernels on the current stream
-    and adds one to ``flash_attention_bwd.launches``."""
+    head's G query heads. Launches its kernels (three, four when the bf16
+    dK/dV kernel splits a kv head's query heads) on the current stream and
+    adds one to ``flash_attention_bwd.launches``."""
     _check(q, k, v, causal, window, "flash_attention_bwd")
     BH, Sq, hd = q.shape
     BKV, Sk, _ = k.shape
@@ -179,20 +204,21 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"lse must be ({BH}, {Sq}) contiguous float32 on "
                          f"{q.device}; got {tuple(lse.shape)} {lse.dtype}")
-    if bwd_blocks(BH, BKV, Sq, Sk, hd) > INT32_MAX:
+    if bwd_blocks(BH, BKV, Sq, Sk, hd, q.dtype) > INT32_MAX:
         raise ValueError(f"BH {BH}, Sq {Sq}, Sk {Sk}: past the backward "
                          "kernels' 32-bit grids")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty(BH, Sq, dtype=torch.float32, device=q.device)
+    scratch = torch.empty(bwd_scratch_floats(BH, BKV, Sq, Sk, hd, q.dtype),
+                          dtype=torch.float32, device=q.device)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            delta.data_ptr(), BH, BKV, Sq, Sk, hd, _DTYPES[q.dtype],
+            scratch.data_ptr(), BH, BKV, Sq, Sk, hd, _DTYPES[q.dtype],
             int(bool(causal)), int(window), float(scale),
             torch.cuda.current_stream().cuda_stream)
     if err:

@@ -171,14 +171,68 @@ def test_ssd_and_rglru_stay_differentiable_on_cpu(fn, args):
 
 
 def test_backward_tiles_match_the_kernels():
-    """The wrapper's grid rule uses the tiles of the CUDA source: 64 q rows,
-    64 keys (32 at hd 256) and D rows in blocks of 8 warps."""
+    """The wrapper's grid and scratch rules use the tiles and the G-split rule
+    of the CUDA source: bf16 dK/dV blocks of 64 keys over 64-row q tiles,
+    dQ blocks of 128 rows (two 64-row warpgroups) over 64-key tiles (V in
+    one stage at hd 256), at least 256 dK/dV blocks
+    where a divisor of G gives them; f32 tiles of 64 q rows and 64 keys (32
+    at hd 256); D rows in blocks of 8 warps."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     src = (build.CSRC / "flash_attention_bwd.cu").read_text()
-    assert "constexpr int BM = 64;" in src and "constexpr int WARPS = 8;" in src
-    assert "static constexpr int BN = HD >= 256 ? 32 : 64;" in src
-    assert (fa.BWD_Q_ROWS, fa.BWD_ROWS_PER_BLOCK) == (64, 8)
-    assert [fa.bwd_keys_per_tile(hd) for hd in fa.HEAD_DIMS] == [64, 64, 64, 64, 32]
-    assert fa.bwd_blocks(16, 8, 2048, 2048, 256) == 16 * 2048 // 8
-    assert fa.bwd_blocks(2**20, 1, 2**16, 1, 64) > fa.INT32_MAX
+    for line in ("constexpr int BWD_BN = 64;", "constexpr int BWD_BM = 64;",
+                 "constexpr int MIN_BLOCKS = 256;", "constexpr int D_WARPS = 8;",
+                 "constexpr int F32_BM = 64;",
+                 "constexpr int BN = BWD_BN;",
+                 "static constexpr int VSTAGES = HD >= 256 ? 1 : 2;",
+                 "static constexpr int BN = HD >= 256 ? 32 : 64;   // keys per kv tile",
+                 "if (G % s == 0 && tiles * s >= MIN_BLOCKS) return s;",
+                 "((long long)BH * Sq + 63) / 64 * 64",
+                 "(Sq + 2 * BWD_BM - 1) / (2 * BWD_BM)"):
+        assert line in src, line
+    assert (fa.BWD_BN, fa.BWD_DQ_ROWS, fa.BWD_F32_Q_ROWS, fa.BWD_ROWS_PER_BLOCK) == (64, 128, 64, 8)
+    assert fa.BWD_MIN_BLOCKS == 256
+    assert [fa.bwd_f32_keys_per_tile(hd) for hd in fa.HEAD_DIMS] == [64, 64, 64, 64, 32]
+    bf16, f32 = torch.bfloat16, torch.float32
+    # the D kernel's grid is the largest here: a block per 8 rows
+    assert fa.bwd_blocks(16, 8, 2048, 2048, 256, bf16) == 16 * 2048 // 8
+    assert fa.bwd_blocks(16, 8, 2048, 2048, 256, f32) == 16 * 2048 // 8
+    # one kv head: the split multiplies the bf16 dK/dV grid (32 tiles x 8
+    # splits of its 8 heads); the f32 kernel's tiles are 32 keys at hd 256
+    assert fa.bwd_blocks(8, 1, 8, 2048, 64, bf16) == 32 * 8
+    assert fa.bwd_blocks(8, 1, 8, 2048, 256, f32) == 2048 // 32
+    assert fa.bwd_blocks(2**20, 1, 2**16, 1, 64, bf16) > fa.INT32_MAX
+
+
+# (label, B, heads, kv heads, hd, S, splits, scratch floats)
+SPLIT_CASES = [
+    # gemma3-4b at B 2: 8 kv heads x 32 kv tiles = 256 blocks, no split
+    ("gemma3-4b", 2, 8, 4, 256, 2048, 1, 2 * 8 * 2048),
+    # recurrentgemma-9b: 16 heads over one kv head, 64 tiles -> 4 splits, 256 blocks
+    ("recurrentgemma-9b", 2, 16, 1, 256, 2048, 4, 2 * 16 * 2048 + 2 * 4 * 2 * 2048 * 256),
+    # qwen3-8b (hd 128, GQA 4): 16 kv heads x 32 tiles = 512 blocks, no split
+    ("qwen3-8b", 2, 32, 8, 128, 2048, 1, 2 * 32 * 2048),
+    # recurrentgemma-9b at B 1 and S 1000: 16 tiles -> 16 splits (all G)
+    ("recurrentgemma-9b B1 S1000", 1, 16, 1, 256, 1000, 16,
+     16 * 1000 + 2 * 16 * 1 * 1000 * 256),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+def test_head_split_rule_and_scratch(case):
+    """The G-split rule at the trained and planned shapes: the fewest splits,
+    a divisor of G, that give the bf16 dK/dV grid 256 blocks; the scratch
+    holds D (rounded to 64 floats) and, when split, f32 partial dK and dV.
+    The f32 path never splits."""
+    from repro_torch.kernels import flash_attention as fa
+    _, B, H, KV, hd, S, splits, floats = case
+    BKV, G = B * KV, H // KV
+    assert fa.bwd_head_splits(BKV, G, S) == splits
+    assert G % splits == 0
+    blocks = BKV * -(-S // fa.BWD_BN) * splits
+    assert blocks >= fa.BWD_MIN_BLOCKS or splits == G
+    if splits > 1:                      # no smaller divisor of G would do
+        assert all(G % s or BKV * -(-S // fa.BWD_BN) * s < fa.BWD_MIN_BLOCKS
+                   for s in range(1, splits))
+    assert fa.bwd_scratch_floats(B * H, BKV, S, S, hd, torch.bfloat16) == floats
+    assert fa.bwd_scratch_floats(B * H, BKV, S, S, hd, torch.float32) == -(-(B * H * S) // 64) * 64

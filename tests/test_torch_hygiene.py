@@ -58,12 +58,40 @@ def test_forbidden_rule_catches_jax_and_repro():
 def test_flash_attention_bf16_path_is_hopper_only():
     """K1's bf16 path loads through TMA into an mbarrier ring and multiplies
     with wgmma in warpgroups given registers by setmaxnreg; no mma.sync
-    (pre-Hopper tensor-core) code is left in the source."""
-    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu").read_text()
+    (pre-Hopper tensor-core) code is left in the source or in the header
+    its PTX helpers come from."""
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    src = (csrc / "flash_attention.cu").read_text()
+    assert '#include "hopper.cuh"' in src
+    src += (csrc / "hopper.cuh").read_text()
     assert "mma.sync" not in src
     for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
                    "setmaxnreg.inc", "setmaxnreg.dec", "flash_fwd_bf16_kernel"):
         assert needle in src, needle
+
+
+def test_flash_attention_bwd_bf16_path_is_hopper_only():
+    """K1's backward multiplies in bf16 with wgmma on tiles that TMA brings
+    into an mbarrier ring, in warpgroups given registers by setmaxnreg, for
+    every head dim; no mma.sync is left in the source; its PTX helpers come
+    from the header it shares with the forward."""
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    src = (csrc / "flash_attention_bwd.cu").read_text()
+    assert "mma.sync" not in src and "mma.sync" not in (csrc / "hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in src
+    for needle in ("wgmma_rs<HD>", "wgmma_ss_n64<", "tma_load_3d(", "mbar_wait(",
+                   "setmaxnreg.inc", "setmaxnreg.dec", "flash_bwd_dkdv_bf16_kernel",
+                   "flash_bwd_dq_bf16_kernel", "flash_bwd_reduce_kernel"):
+        assert needle in src, needle
+    header = (csrc / "hopper.cuh").read_text()
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait"):
+        assert needle in header, needle
+    # every head dim the wrapper takes reaches the bf16 path
+    for hd in (16, 32, 64, 128, 256):
+        assert f"case {hd}:" in src and f"launch_hd<{hd}>" in src
+    assert "return launch_bf16<HD>(" in src
+    # no float atomics: every call gives the same bits
+    assert "atomicAdd" not in src and "red." not in src
 
 
 def test_ssd_products_are_3xtf32_on_tensor_cores():

@@ -131,6 +131,34 @@ def test_library_path_tracks_source_and_flags():
     assert p == build.library_path("flash_attention")
 
 
+def test_library_path_tracks_included_headers(tmp_path, monkeypatch):
+    """An edit of a header a source includes, directly or through another
+    header, gives the source a new library, so no stale one is loaded; an
+    edit of a header it does not include leaves the path as it was."""
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\nint x;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "other.cuh").write_text("// other\n")
+    assert [p.name for p in build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = build.library_path("k")
+    (tmp_path / "other.cuh").write_text("// other, edited\n")
+    assert build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    second = build.library_path("k")
+    assert second != first
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    assert build.library_path("k") not in (first, second)
+
+
+def test_backward_and_forward_share_the_hopper_header():
+    """K1's forward and backward take their PTX helpers from csrc/hopper.cuh
+    and both libraries' names cover it; build_all still builds .cu files only."""
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert [p.name for p in build.sources(name)] == [f"{name}.cu", "hopper.cuh"]
+    assert "hopper" not in {p.stem for p in build.CSRC.glob("*.cu")}
+
+
 @pytest.mark.parametrize("Sq,Sk,causal,window", [
     (64, 64, True, 16), (96, 64, True, 0), (96, 64, False, 0),
     (40, 16, True, 24), (39, 16, True, 24), (48, 16, False, 32),
