@@ -37,7 +37,16 @@ a kernel's plain version:
              ragged last chunks, a one-row tail) and the mamba2-780m
              serving shape (both 2e-3 x max(1, max |ref|)); its bound at
              f32 accuracy (3xTF32 on the tensor cores) beside the f32 rate
-             without tensor cores;
+             without tensor cores; y and S_final bit-equal with and without
+             the output the backward keeps;
+             ssd_bwd: against the plain backward on the ssd sweep and served
+             widths (ragged last chunks, s below a 64-row tile, a one-row
+             tail), each with dS_final None and given, and at the
+             mamba2-780m training shape (b 2, s 2048, h 48, chunk 256), all
+             2e-3 x max(1, max |ref|) per gradient; 20 calls bit-equal
+             there; its time (CUDA events and profiler device time by
+             kernel) beside its bound and the plain backward; each kernel's
+             ptxas registers and spills;
              rglru_scan: the f32 sweep of tests/test_kernels.py (1e-5);
              ragged B 2 shapes (S 1, 63, 64, 65, 2049 x C 7, 130, 4095), B 1
              at the serving width, a chain of 256 chunks (B 1, S 16384) with
@@ -63,13 +72,20 @@ a kernel's plain version:
              B 1, S 2048) in f32: the gradient from K1's forward and backward
              against a Richardson-extrapolated central difference of the
              loss along random directions over every leaf and over the
-             attention leaves (1e-2 relative)
+             attention leaves (1e-2 relative); the same for a full-width
+             two-layer mamba2-780m (8 chunks a sequence) through K2's
+             forward and backward, over every leaf and over the mixer
+             leaves that reach the loss through K2 (A_log, dt_bias, in_B,
+             in_C, in_dt, in_x, conv_*)
   6. train   gemma3-4b at full width and depth, B 2 x S 2048 from the
              port's data, remat full, 6 AdamW steps: finite losses and
              gnorms, per step exactly the K1 forwards (34 + 30 recomputed)
-             and backwards (34) remat full implies, no K2 or K3 launch;
-             ssd and rglru_scan refuse autograd on the card; step time,
-             tokens/s, peak memory and a profiler window of one step
+             and backwards (34) remat full implies, no other kernel; then
+             rglru_scan refuses autograd on the card and ssd runs K2's
+             forward and backward kernels under it; then mamba2-780m the
+             same way (48 + 48 recomputed K2 forwards and 48 K2 backwards a
+             step, no other kernel); for each, step time, tokens/s, peak
+             memory and a profiler window of one step
 Prints the kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -239,15 +255,16 @@ K1_BWD_ENTRIES = ("flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel")
 
 
 def phase_build():
-    """Build every source; returns the ptxas lines of K1's served instance
-    and {"<kernel> hd <hd>": ptxas lines} of its backward's bf16 instances."""
+    """Build every source; returns the ptxas lines of K1's served instance,
+    {"<kernel> hd <hd>": ptxas lines} of its backward's bf16 instances and
+    {kernel: ptxas lines} of K2's backward at mamba2-780m's widths."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     try:
         info = build.build_all()
     except RuntimeError as e:
         fail(str(e))
-    served, bwd = None, {}
+    served, bwd, ssd_bwd = None, {}, {}
     for name, item in info.items():
         usage = ptxas_usage(item["log"])
         log(f"[build] {name}: {item['seconds']:.1f}s nvcc -> {item['path'].name}; "
@@ -257,10 +274,13 @@ def phase_build():
         for ln in item["log"].splitlines():
             if "warning" in ln.lower() or "Performance Loss" in ln:
                 log(f"[build] {name}: {ln.strip()}")
-        if name == "ssd":                 # each of K2's kernels, by name
+        if name in ("ssd", "ssd_bwd"):    # each of K2's kernels and its backward's, by name
+            fn = "ssd_fwd" if name == "ssd" else name   # the C function the namespace is named by
             for entry, lines in sorted(usage.items()):
-                short = entry.split("ssd_fwd")[-1].lstrip("0123456789")[:36]
-                log(f"[build] ssd {short}: {lines}")
+                short = entry.split("_cu_")[-1].split(fn, 1)[-1].lstrip("0123456789")[:48]
+                log(f"[build] {name} {short}: {lines}")
+                if name == "ssd_bwd" and ("ILi" not in short or "ILi64ELi128E" in short):
+                    ssd_bwd[short] = lines      # the instance mamba2-780m runs (p 64, n 128)
         if name == "rglru":               # K3's kernel: 64 steps of a and b in registers
             for entry, lines in sorted(usage.items()):
                 log(f"[build] rglru {entry}: {lines}")
@@ -275,7 +295,7 @@ def phase_build():
     for key in sorted(bwd, key=lambda x: (x.split(" hd ")[0], int(x.split(" hd ")[1]))):
         log(f"[build] flash_attention_bwd {key}: {bwd[key]}")
     log(f"[build] all sources in {time.perf_counter() - t0:.1f}s")
-    return served, bwd
+    return served, bwd, ssd_bwd
 
 
 def phase_kernels(torch, ptxas_served):
@@ -676,6 +696,14 @@ def phase_kernels_ssd(torch):
     g = torch.Generator(device="cuda").manual_seed(SEED)
     args = ssd_inputs(torch, g, b, s, h, p, n)
     err, scale = check(args, cfg.ssm_chunk, "serving shape")
+    # the optional saved output (training) leaves y and S_final as they are
+    plain_out = ssd_fwd(*args, chunk=cfg.ssm_chunk)
+    saved_out = ssd_fwd(*args, chunk=cfg.ssm_chunk, return_saved=True)
+    if not all(torch.equal(a, b) for a, b in zip(plain_out, saved_out[:2])):
+        fail("ssd serving shape: y or S_final differ with and without the saved output")
+    del plain_out, saved_out
+    log("[kernels] ssd serving shape: y and S_final bit-equal with and without the saved "
+        "output")
     ms = cuda_ms(torch, lambda: ssd_fwd(*args, chunk=cfg.ssm_chunk))
     # the sequential plain version takes ~2048 steps of small kernels: 3 reps
     plain_ms = cuda_ms(torch, lambda: ref.ssd_oracle(*args), reps=3, warmup=1)
@@ -704,6 +732,158 @@ def phase_kernels_ssd(torch):
         "f32_sweep_max_abs_err": sweep_err,
         "served_widths_max_abs_err": widths_err,
         "per_launch": per_launch,
+    }
+
+
+def ssd_bwd_bound_ms(x, B, chunk):
+    """Least time of one SSD backward at f32 accuracy: per (b, h, chunk) of
+    q valid rows the causal halves of dy x^T, M^T dy, P B and P^T C
+    (2 q^2 p + 2 q^2 n FLOP) and four q x n x p products (8 q n p), three
+    times over (3xTF32) at the TF32 tensor-core rate, against the bytes of
+    its inputs (x, dt, A, B, C, dy, and the forward's states, cum and C B^T;
+    training passes no dS_final) and outputs (dx, ddt, dA, dB, dC), each
+    moved once.
+    Returns (ms, bound by, ms of the operations at the f32 rate without
+    tensor cores against the bytes)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    Q = min(chunk, s)
+    nc = -(-s // Q)
+    Qp = -(-Q // 64) * 64
+    rows = [min(Q, s - c * Q) for c in range(nc)]
+    flops = b * h * sum(2 * q * q * p + 2 * q * q * n + 8 * q * n * p for q in rows)
+    nbytes = 4 * (3 * x.numel() + 2 * b * s * h + 2 * h + 2 * 2 * B.numel()
+                  + b * h * nc * (n * p + Q) + b * nc * Qp * Qp)
+    t_ops, t_bytes = 3 * flops / PEAK_FLOPS["tf32"], nbytes / PEAK_BYTES
+    simt_ms = max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            simt_ms)
+
+
+# K2's backward against the plain backward, relative to max(1, max |ref|)
+# per gradient tensor. The card's worst error over the sweep and the
+# training shape is 6.55e-5 (dA, NVIDIA H100 80GB HBM3, 700 W); the same
+# products in plain TF32 miss this bound on every case of the CPU emulation
+# in tests/test_torch_ssd_bwd.py, which asserts both sides
+SSD_BWD_RTOL = 2e-4
+
+
+def phase_kernels_ssd_bwd(torch, ptxas):
+    """K2's backward against the plain backward (ref.ssd_bwd_oracle) on the
+    forward's sweep and served widths, with dS_final None and given, and at
+    the mamba2-780m training shape; 20 calls bit-equal there; times."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd import ssd_bwd, ssd_fwd
+    F = torch.nn.functional
+
+    def check(args, dy, dsf, chunk, what):
+        """Errors of dx, ddt, dA, dB, dC relative to max(1, max |ref|)."""
+        _, _, *saved = ssd_fwd(*args, chunk=chunk, return_saved=True)
+        got = ssd_bwd(*args, dy, dsf, *saved, chunk=chunk)
+        torch.cuda.synchronize()
+        want = ref.ssd_bwd_oracle(*args, dy, dsf, chunk=chunk)
+        errs = {}
+        for name, x, y in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+            if x.shape != y.shape or x.dtype != torch.float32:
+                fail(f"ssd_bwd {what}: {name} is {tuple(x.shape)} {x.dtype}")
+            rel = (x - y).abs().max().item() / max(1.0, y.abs().max().item())
+            if not math.isfinite(rel) or rel > SSD_BWD_RTOL:
+                fail(f"ssd_bwd {what}: {name} err {rel:.3g} x max(1, max |ref|) "
+                     f"> {SSD_BWD_RTOL}")
+            errs[name] = rel
+        return errs
+
+    def worst_of(errs, into):
+        for k, v in errs.items():
+            into[k] = max(into.get(k, 0.0), v)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    worst, cases = {}, 0
+    # the forward's f32 sweep (tests/test_kernels.py:80-92, its inputs as it
+    # builds them) and the served widths at b 1, h 4: s 1 (a chunk shorter
+    # than a 64-row tile), 100 (a ragged single chunk), 300 and 2049 (ragged
+    # last chunks; 2049 a one-row tail); each with dS_final None and given
+    cfg = get_config(SSM_ARCH)
+    h, p, n, chunk = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    shapes = []
+    for s_, ch in [(80, 32), (64, 64), (96, 16)]:
+        rng = np.random.RandomState(4)
+        b_, h_, p_, n_ = 2, 3, 16, 8
+        x = torch.tensor(rng.randn(b_, s_, h_, p_), dtype=torch.float32)
+        dt = F.softplus(torch.tensor(rng.randn(b_, s_, h_), dtype=torch.float32))
+        A = -torch.exp(torch.tensor(rng.randn(h_), dtype=torch.float32) * 0.3)
+        B = torch.tensor(rng.randn(b_, s_, n_), dtype=torch.float32) * 0.5
+        C = torch.tensor(rng.randn(b_, s_, n_), dtype=torch.float32) * 0.5
+        shapes.append(([t.cuda() for t in (x, dt, A, B, C)], ch, f"sweep s{s_} chunk{ch}"))
+    for s_ in (1, 100, 300, 2049):
+        shapes.append((list(ssd_inputs(torch, g, 1, s_, 4, p, n)), chunk,
+                       f"served widths b1 s{s_} h4"))
+    for args, ch, what in shapes:
+        b_, s_, h_, p_ = args[0].shape
+        dy = rn(b_, s_, h_, p_)
+        for dsf in (None, rn(b_, h_, args[3].shape[-1], p_)):
+            label = f"{what}, dS_final {'given' if dsf is not None else 'None'}"
+            worst_of(check(args, dy, dsf, ch, label), worst)
+            cases += 1
+    log(f"[kernels] ssd_bwd sweep and served widths, {cases} cases: max err x max(1, max "
+        f"|ref|) " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (tol {SSD_BWD_RTOL})")
+
+    # the mamba2-780m training shape: b 2, s 2048, h 48, p 64, n 128, chunk 256
+    args = list(ssd_inputs(torch, g, TRAIN_BATCH, TRAIN_SEQ, h, p, n))
+    dy = rn(TRAIN_BATCH, TRAIN_SEQ, h, p)
+    train_errs = check(args, dy, None, chunk, "training shape")
+    worst_of(train_errs, worst)
+    _, _, *saved = ssd_fwd(*args, chunk=chunk, return_saved=True)
+    run = lambda: ssd_bwd(*args, dy, None, *saved, chunk=chunk)  # noqa: E731
+    # no atomics, and every sum in a fixed order: every call gives the same bits
+    outs = [run() for _ in range(20)]
+    torch.cuda.synchronize()
+    if not all(all(torch.equal(a, b) for a, b in zip(o, outs[0])) for o in outs):
+        fail("ssd_bwd: 20 back-to-back calls at the training shape differ")
+    del outs
+    log("[kernels] ssd_bwd training shape: 20 back-to-back calls bit-equal")
+    ms = cuda_ms(torch, run)
+    device_us = device_us_by_kernel(torch, run)
+    device_ms = sum(device_us.values()) / 1e3 or None
+    plain_ms = cuda_ms(torch, lambda: ref.ssd_bwd_oracle(*args, dy, None, chunk=chunk),
+                       reps=3, warmup=1)
+    bound_ms, bound_by, simt_ms = ssd_bwd_bound_ms(args[0], args[3], chunk)
+    device = (f"device {device_ms:.4f} ms (" + "; ".join(
+        f"{_short(k)} {us:.1f} us" for k, us in device_us.items()) + ")"
+        if device_ms else "device time not measured (the profiler saw no kernels)")
+    log(f"[kernels] ssd_bwd training shape (b {TRAIN_BATCH}, s {TRAIN_SEQ}, h {h}, p {p}, n "
+        f"{n}, chunk {chunk}): err " + ", ".join(f"{k} {v:.3g}" for k, v in train_errs.items())
+        + f"; {ms:.4f} ms by CUDA events ({bound_ms / ms:.1%} of the bound); {device}; plain "
+        f"{plain_ms:.3f}; bound {bound_ms:.4f} by {bound_by} at 3xTF32, {simt_ms:.4f} at the "
+        "f32 rate without tensor cores")
+    del args, dy, saved
+    n_layers = sum(kind == "ssd" for kind in cfg.layer_kinds)
+    return {
+        "name": "ssd_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+        "replaces": "src/repro/kernels/ssd.py:66",
+        "replaces_note": "the gradient of K2's function, which the JAX package "
+                         "takes through XLA (no custom_vjp)",
+        "launches": None,                     # filled in from the train phase
+        "max_abs_err": max(worst.values()),
+        "max_err_is": "relative to max(1, max |ref|) per gradient tensor",
+        "ms": n_layers * ms, "plain_ms": n_layers * plain_ms,
+        "bound_ms": n_layers * bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the SSD scan or its gradient",
+        "bound_ms_simt_f32": n_layers * simt_ms,
+        "times_are": f"per {SSM_ARCH} train step: {n_layers} launches at the training "
+                     f"shape (b {TRAIN_BATCH}, s {TRAIN_SEQ})",
+        "sweep_cases": cases, "max_rel_err_by_tensor": worst,
+        "ptxas": ptxas,
+        "per_launch": {"ms": ms, "device_ms": device_ms, "device_us_by_kernel": device_us,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bound_ms_simt_f32": simt_ms, "bound_share": bound_ms / ms,
+                       "max_rel_err": train_errs},
     }
 
 
@@ -884,9 +1064,9 @@ def phase_kernels_rglru(torch):
 def _launch_counters():
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
     from repro_torch.kernels.rglru import rglru_scan_fwd
-    from repro_torch.kernels.ssd import ssd_fwd
+    from repro_torch.kernels.ssd import ssd_bwd, ssd_fwd
     return {"flash_attention": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
-            "ssd": ssd_fwd, "rglru_scan": rglru_scan_fwd}
+            "ssd": ssd_fwd, "ssd_bwd": ssd_bwd, "rglru_scan": rglru_scan_fwd}
 
 
 def phase_serve(torch, arch, per_prefill):
@@ -1034,7 +1214,7 @@ def _fmt_checks(checks):
 
 
 # buckets whose every kernel the profile lines list by name
-NAMED_BUCKETS = ("ssd", "rglru")
+NAMED_BUCKETS = ("ssd", "ssd_bwd", "rglru")
 
 
 def _bucket(name):
@@ -1042,6 +1222,8 @@ def _bucket(name):
         return "flash_attention"
     if "flash_bwd_" in name:
         return "flash_attention_bwd"
+    if "ssd_bwd_" in name:
+        return "ssd_bwd"
     if "ssd_" in name:
         return "ssd"
     if "rglru_" in name:
@@ -1156,21 +1338,36 @@ def _unit_direction(torch, params, names, g):
     return {k: x / len(v) ** 0.5 for k, x in v.items()}
 
 
-def phase_grad_check(torch):
-    """Full-width, two-layer gemma3-4b (one local, one global layer; B 1,
-    S 2048, so the window is live) in f32: the gradient from K1's forward and
-    backward kernels against a central finite difference of the loss along
-    random directions, over every leaf and over the attention leaves alone
-    (whose gradient reaches them only through K1's dq, dk and dv). The
-    forwards of the difference run K1 without autograd."""
-    from repro_torch.configs.base import GLOBAL_ATTN, LOCAL_ATTN
+# each trained arch: the kernels its forward and backward launch once per
+# layer, and for the gradient check its two-layer cut (superblock, repeats)
+# and the leaves whose gradient reaches the loss only through those kernels
+TRAINED = {
+    ARCH: {"superblock": ("local", "global"), "sb_repeat": 1,
+           "kernels": ("flash_attention", "flash_attention_bwd"),
+           "leaves": ("attention leaves", lambda k: ".attn." in k)},
+    SSM_ARCH: {"superblock": ("ssd",), "sb_repeat": 2, "kernels": ("ssd", "ssd_bwd"),
+               "leaves": ("mixer leaves", lambda k: ".mixer." in k and any(
+                   f".{leaf}" in k for leaf in ("A_log", "dt_bias", "in_B", "in_C", "in_dt",
+                                                "in_x", "conv_")))},
+}
+
+
+def phase_grad_check(torch, arch):
+    """Full-width, two-layer `arch` (gemma3-4b: one local, one global layer;
+    mamba2-780m: two Mamba2 layers; B 1, S 2048, so gemma's window is live
+    and mamba2 runs 8 chunks) in f32: the gradient from the arch's kernel's
+    forward and backward against a central finite difference of the loss
+    along random directions, over every leaf and over the leaves whose
+    gradient reaches the loss only through that kernel (TRAINED). The
+    forwards of the difference run the forward kernel without autograd."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import Model
     from repro_torch.train.data import DataConfig, make_batch
 
     counters = _launch_counters()
-    cfg = get_config(ARCH).replace(name=f"{ARCH}-2layer", num_layers=2,
-                                   superblock=(LOCAL_ATTN, GLOBAL_ATTN), sb_repeat=1,
+    spec = TRAINED[arch]
+    cfg = get_config(arch).replace(name=f"{arch}-2layer", num_layers=2,
+                                   superblock=spec["superblock"], sb_repeat=spec["sb_repeat"],
                                    remainder=())
     model = Model(cfg, device="cuda", seed=SEED, trainable=True).float()
     batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
@@ -1181,9 +1378,9 @@ def phase_grad_check(torch):
     loss.backward()
     torch.cuda.synchronize()
     got = {name: fn.launches for name, fn in counters.items()}
-    want = {"flash_attention": 2, "flash_attention_bwd": 2, "ssd": 0, "rglru_scan": 0}
+    want = {name: 2 if name in spec["kernels"] else 0 for name in counters}
     if got != want:
-        fail(f"gradient check: launches {got}, want {want}")
+        fail(f"gradient check {arch}: launches {got}, want {want}")
     params = dict(model.named_parameters())
     grads = {k: p.grad.detach().clone() for k, p in params.items()}
     orig = {k: p.detach().clone() for k, p in params.items()}
@@ -1191,8 +1388,9 @@ def phase_grad_check(torch):
     L0 = loss.item()
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     out = {}
+    kernel_label, kernel_leaf = spec["leaves"]
     for label, names in (("every leaf", sorted(params)),
-                         ("attention leaves", sorted(k for k in params if ".attn." in k))):
+                         (kernel_label, sorted(k for k in params if kernel_leaf(k)))):
         v = _unit_direction(torch, params, names, g)
         gv = sum((grads[k].double() * v[k].double()).sum() for k in names).item()
         eps = FD_STEP * sum(orig[k].double().square().sum() for k in names).sqrt().item()
@@ -1218,46 +1416,70 @@ def phase_grad_check(torch):
             f"{eps:.4g}, {d2:.6g} at eps / 2; loss {L0:.6f}); rel err {rel:.3g} "
             f"(tol {FD_RTOL})")
         if not (math.isfinite(rel) and rel <= FD_RTOL):
-            fail(f"gradient check over {label}: FD {fd:.6g} vs <g, v> {gv:.6g}, rel err "
-                 f"{rel:.3g} > {FD_RTOL}")
+            fail(f"gradient check {arch} over {label}: FD {fd:.6g} vs <g, v> {gv:.6g}, "
+                 f"rel err {rel:.3g} > {FD_RTOL}")
     del model, params, grads, orig, v, loss
     torch.cuda.empty_cache()
     return out
 
 
-def phase_train(torch, card):
-    """Train gemma3-4b at full width and depth, the serve phase's config:
+def phase_autograd_on_card(torch):
+    """Under autograd on the card ops.rglru_scan refuses (K3 has no backward
+    kernel yet) and ops.ssd runs K2's forward and backward kernels (one
+    launch each; the gradients against the plain backward at
+    SSD_BWD_RTOL x max(1, max |ref|))."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ssd import ssd_bwd, ssd_fwd
+
+    xs = [torch.rand(1, 64, 8, device="cuda", requires_grad=True) for _ in range(2)]
+    try:
+        ops.rglru_scan(*xs)
+    except NotImplementedError as e:
+        log(f"[train] rglru_scan under autograd on the card raises: {e}")
+    else:
+        fail("rglru_scan ran under autograd on the card (no backward kernel)")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    args = [t.requires_grad_() for t in ssd_inputs(torch, g, 1, 100, 2, 16, 8)]
+    before = (ssd_fwd.launches, ssd_bwd.launches)
+    y, _ = ops.ssd(*args, chunk=32)
+    dy = torch.randn(y.shape, generator=g, device="cuda")
+    got = torch.autograd.grad(y, args, dy)
+    torch.cuda.synchronize()
+    launches = (ssd_fwd.launches - before[0], ssd_bwd.launches - before[1])
+    if launches != (1, 1):
+        fail(f"ops.ssd under autograd on the card: {launches} (forward, backward) "
+             "launches, want (1, 1)")
+    want = ref.ssd_bwd_oracle(*(t.detach() for t in args), dy, chunk=32)
+    err = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+              for a, b in zip(got, want))
+    if not err <= SSD_BWD_RTOL:
+        fail(f"ops.ssd under autograd on the card: gradient err {err:.3g} > {SSD_BWD_RTOL}")
+    log(f"[train] ssd under autograd on the card runs K2's forward and backward kernels "
+        f"(one launch each); gradient err {err:.3g} x max(1, max |ref|)")
+
+
+def phase_train(torch, card, arch):
+    """Train `arch` at full width and depth, the serve phase's config:
     TRAIN_STEPS steps of B TRAIN_BATCH x S TRAIN_SEQ from the port's data,
     remat full, one microbatch. Gates: finite losses and gnorms; per step
-    the K1 launches remat full implies (a forward per layer, again for each
-    layer of the rematted superblocks, and a backward per layer); no K2 or
-    K3 launch. Returns the launches of the run."""
+    the launches remat full implies of the arch's forward and backward
+    kernels, TRAINED[arch]["kernels"] (a forward per layer, again for each layer of the
+    rematted superblocks, and a backward per layer); no other kernel.
+    Returns the run's numbers and launches."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models import Model
     from repro_torch.train.data import DataConfig, DataIterator
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import init_train_state, make_train_step
 
-    # no plain version under autograd on the card: K2 and K3 have no backward
-    for name, fn, args in (("ssd", ops.ssd, [(1, 64, 2, 16), (1, 64, 2), (2,), (1, 64, 8),
-                                             (1, 64, 8)]),
-                           ("rglru_scan", ops.rglru_scan, [(1, 64, 8), (1, 64, 8)])):
-        xs = [torch.rand(*sh, device="cuda", requires_grad=True) for sh in args]
-        try:
-            fn(*xs)
-        except NotImplementedError as e:
-            log(f"[train] {name} under autograd on the card raises: {e}")
-        else:
-            fail(f"{name} ran under autograd on the card (no backward kernel)")
-
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     counters = _launch_counters()
     n_layers = cfg.num_layers
     n_remat = len(cfg.superblock) * cfg.sb_repeat
-    want = {"flash_attention": n_layers + n_remat, "flash_attention_bwd": n_layers,
-            "ssd": 0, "rglru_scan": 0}
+    fwd, bwd = TRAINED[arch]["kernels"]
+    want = {name: 0 for name in counters}
+    want.update({fwd: n_layers + n_remat, bwd: n_layers})
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda", seed=SEED, trainable=True)
@@ -1286,13 +1508,13 @@ def phase_train(torch, card):
         gnorms.append(float(metrics["gnorm"]))
         per_step = {name: fn.launches - before[name] for name, fn in counters.items()}
         if per_step != want:
-            fail(f"train step {i}: launches {per_step}, want {want}")
+            fail(f"train {arch} step {i}: launches {per_step}, want {want}")
         log(f"[train] step {i}: loss {losses[-1]:.6f}, gnorm {gnorms[-1]:.6g}, "
             f"lr {metrics['lr']:.3g}, {times[-1] * 1e3:.2f} ms")
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(x) for x in losses + gnorms):
-        fail(f"train: non-finite loss or gnorm: {losses}, {gnorms}")
+        fail(f"train {arch}: non-finite loss or gnorm: {losses}, {gnorms}")
     step_ms = statistics.median(times[1:]) * 1e3
     tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
     log(f"[train] {cfg.name} B {TRAIN_BATCH} x S {TRAIN_SEQ}, remat full, {TRAIN_STEPS} "
@@ -1324,15 +1546,27 @@ def main(argv=None):
               "run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
-    card = phase_device(torch)
-    ptxas_served, ptxas_bwd = phase_build()
-    flash = phase_kernels(torch, ptxas_served)
-    flash["lse"] = phase_kernels_flash_lse(torch)
-    flash_bwd = phase_kernels_flash_bwd(torch, ptxas_bwd)
-    ssd = phase_kernels_ssd(torch)
-    scan = phase_kernels_rglru(torch)
+    seconds = {}
+
+    def timed(label, fn, *fn_args):
+        """fn(*fn_args), its wall seconds kept under `label`."""
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        return out
+
+    card = timed("device", phase_device, torch)
+    ptxas_served, ptxas_bwd, ptxas_ssd_bwd = timed("build", phase_build)
+    flash = timed("kernels flash_attention", phase_kernels, torch, ptxas_served)
+    flash["lse"] = timed("kernels flash_attention lse", phase_kernels_flash_lse, torch)
+    flash_bwd = timed("kernels flash_attention_bwd", phase_kernels_flash_bwd, torch, ptxas_bwd)
+    ssd = timed("kernels ssd", phase_kernels_ssd, torch)
+    ssd_bwd = timed("kernels ssd_bwd", phase_kernels_ssd_bwd, torch, ptxas_ssd_bwd)
+    scan = timed("kernels rglru_scan", phase_kernels_rglru, torch)
+    kernels = [flash, flash_bwd, ssd, ssd_bwd, scan]
     if args.kernels_only:
-        log(json.dumps({"kernels": [flash, flash_bwd, ssd, scan]}))
+        log(f"[time] seconds by phase: {seconds}")
+        log(json.dumps({"kernels": kernels}))
         log(card)
         return 0
     from repro_torch.configs.registry import get_config
@@ -1340,17 +1574,21 @@ def main(argv=None):
     def count(arch, *kinds):
         return sum(kind in kinds for kind in get_config(arch).layer_kinds)
 
-    by_arch = {ARCH: phase_serve(torch, ARCH, {
+    by_arch = {ARCH: timed(f"serve {ARCH}", phase_serve, torch, ARCH, {
         "flash_attention": count(ARCH, "global", "local")})}
     torch.cuda.empty_cache()
-    by_arch[SSM_ARCH] = phase_serve(torch, SSM_ARCH, {"ssd": count(SSM_ARCH, "ssd")})
+    by_arch[SSM_ARCH] = timed(f"serve {SSM_ARCH}", phase_serve, torch, SSM_ARCH,
+                              {"ssd": count(SSM_ARCH, "ssd")})
     torch.cuda.empty_cache()
-    by_arch[RG_ARCH] = phase_serve(torch, RG_ARCH, {
+    by_arch[RG_ARCH] = timed(f"serve {RG_ARCH}", phase_serve, torch, RG_ARCH, {
         "rglru_scan": count(RG_ARCH, "rglru"),
         "flash_attention": count(RG_ARCH, "local")})
     torch.cuda.empty_cache()
-    grad = phase_grad_check(torch)
-    train = phase_train(torch, card)
+    grad = timed(f"grad {ARCH}", phase_grad_check, torch, ARCH)
+    train = timed(f"train {ARCH}", phase_train, torch, card, ARCH)
+    ssm_grad = timed(f"grad {SSM_ARCH}", phase_grad_check, torch, SSM_ARCH)
+    timed("autograd on the card", phase_autograd_on_card, torch)
+    ssm_train = timed(f"train {SSM_ARCH}", phase_train, torch, card, SSM_ARCH)
     flash["launches_by_path"] = {f"serve {a}": n["flash_attention"] for a, n in by_arch.items()
                                  if n["flash_attention"]}
     flash["launches_by_path"][f"train {ARCH}"] = train["launches"]["flash_attention"]
@@ -1359,9 +1597,16 @@ def main(argv=None):
     flash_bwd["launches_by_path"] = {f"train {ARCH}": flash_bwd["launches"]}
     flash_bwd["grad_check"] = grad
     flash_bwd["train"] = {k: v for k, v in train.items() if k != "launches"}
-    ssd["launches"] = by_arch[SSM_ARCH]["ssd"]
+    ssd["launches_by_path"] = {f"serve {SSM_ARCH}": by_arch[SSM_ARCH]["ssd"],
+                               f"train {SSM_ARCH}": ssm_train["launches"]["ssd"]}
+    ssd["launches"] = sum(ssd["launches_by_path"].values())
+    ssd_bwd["launches"] = ssm_train["launches"]["ssd_bwd"]
+    ssd_bwd["launches_by_path"] = {f"train {SSM_ARCH}": ssd_bwd["launches"]}
+    ssd_bwd["grad_check"] = ssm_grad
+    ssd_bwd["train"] = {k: v for k, v in ssm_train.items() if k != "launches"}
     scan["launches"] = by_arch[RG_ARCH]["rglru_scan"]
-    log(json.dumps({"kernels": [flash, flash_bwd, ssd, scan]}))
+    log(f"[time] seconds by phase: {seconds}")
+    log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

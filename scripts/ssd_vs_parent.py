@@ -48,8 +48,11 @@ def build_earlier(source):
     from repro_torch.kernels import build
     lib_path = os.path.splitext(source)[0] + "-earlier.so"
     t0 = time.perf_counter()
-    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", lib_path, source],
-                          capture_output=True, text=True)
+    # a source that includes ssd_common.cuh finds it beside itself first,
+    # then in csrc/
+    cmd = [build.nvcc(), *build.NVCC_FLAGS, "-I", os.path.dirname(os.path.abspath(source)),
+           "-I", str(build.CSRC), "-o", lib_path, source]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")
     print(f"{source} built in {time.perf_counter() - t0:.1f}s", flush=True)

@@ -4,12 +4,13 @@ They adapt the model's layouts to the kernels' and dispatch on the device of
 the tensors: a CUDA tensor launches the Hopper kernel, a CPU tensor takes the
 kernel's plain version in ``ref.py``. Counterpart of ``src/repro/kernels/ops.py``.
 
-``flash_attention`` is differentiable: when autograd needs its gradient it
-runs as ``FlashAttention``, whose forward also keeps the rows' logsumexp and
-whose backward is K1's backward kernel (the plain backward on the CPU).
-``ssd`` and ``rglru_scan`` have no backward kernel yet: on a CUDA tensor
-they refuse to run under autograd rather than fall back to their plain,
-differentiable versions.
+``flash_attention`` and ``ssd`` are differentiable: when autograd needs
+their gradient they run as ``FlashAttention`` and ``SSD``, whose forwards
+also keep what the backward reads (the rows' logsumexp; the per-chunk
+states, cum and C B^T) and whose backwards are K1's and K2's backward
+kernels (the plain backwards on the CPU). ``rglru_scan`` has no backward
+kernel yet: on a CUDA tensor it refuses to run under autograd rather than
+fall back to its plain, differentiable version.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                  flash_attention_fwd)
 from repro_torch.kernels.rglru import rglru_scan_fwd
-from repro_torch.kernels.ssd import ssd_fwd
+from repro_torch.kernels.ssd import ssd_bwd, ssd_fwd
 
 
 def _needs_grad(*tensors):
@@ -95,16 +96,47 @@ def rglru_scan(a, b):
     raise ValueError(f"rglru_scan: no kernel for device {a.device}")
 
 
+class SSD(torch.autograd.Function):
+    """K2 in its own layout, x (b,s,h,p), dt (b,s,h), A (h,), B/C (b,s,n):
+    the forward returns (y, S_final) and saves the inputs (and on the card
+    the forward's per-chunk states, cum and C B^T); the backward returns dx,
+    ddt, dA, dB, dC. A gradient that no one asked for stays None (S_final's,
+    in training): the kernel takes it as a null pointer, not as zeros."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.set_materialize_grads(False)
+        if x.device.type == "cuda":
+            y, s_final, *saved = ssd_fwd(x, dt, A, B, C, chunk=chunk, return_saved=True)
+        else:
+            (y, s_final), saved = ref.ssd_oracle(x, dt, A, B, C), []
+        ctx.save_for_backward(x, dt, A, B, C, *saved)
+        ctx.chunk = chunk
+        return y, s_final
+
+    @staticmethod
+    def backward(ctx, dy, ds_final):
+        x, dt, A, B, C, *saved = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        ds_final = None if ds_final is None else ds_final.contiguous()
+        if x.device.type == "cuda":
+            grads = ssd_bwd(x, dt, A, B, C, dy, ds_final, *saved, chunk=ctx.chunk)
+        else:
+            grads = ref.ssd_bwd_oracle(x, dt, A, B, C, dy, ds_final, chunk=ctx.chunk)
+        return (*grads, None)
+
+
 def ssd(x, dt, A, B, C, *, chunk=256):
     """Mamba2 SSD: x (b,s,h,p); dt (b,s,h); A (h,); B,C (b,s,n) -> (y, S_final).
 
     Everything goes to float32 first, as the TPU kernel does; ``chunk``
-    only shapes the CUDA kernel's work (the plain version is sequential)."""
-    if x.device.type == "cuda":
-        _no_backward("ssd", "ROADMAP queue 2, K2's backward", x, dt, A, B, C)
+    only shapes the CUDA kernels' work (the plain forward is sequential, the
+    plain backward chunked). Under autograd the call runs as ``SSD``."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"ssd: no kernel for device {x.device}")
     x, dt, A, B, C = (t.float().contiguous() for t in (x, dt, A, B, C))
+    if _needs_grad(x, dt, A, B, C):
+        return SSD.apply(x, dt, A, B, C, chunk)
     if x.device.type == "cuda":
         return ssd_fwd(x, dt, A, B, C, chunk=chunk)
-    if x.device.type == "cpu":
-        return ref.ssd_oracle(x, dt, A, B, C)
-    raise ValueError(f"ssd: no kernel for device {x.device}")
+    return ref.ssd_oracle(x, dt, A, B, C)

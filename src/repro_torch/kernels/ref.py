@@ -91,14 +91,16 @@ def rglru_scan_oracle(a, b):
 
 
 def ssd_oracle(x, dt, A, B, C):
-    """Fully sequential SSD recurrence (the definition), in float32.
+    """Fully sequential SSD recurrence (the definition), in at least float32
+    (float64 inputs stay float64).
 
     x (b,s,h,p); dt (b,s,h); A (h,); B,C (b,s,n).
     Returns (y (b,s,h,p), S_final (b,h,n,p))."""
-    x, dt, A, B, C = (t.float() for t in (x, dt, A, B, C))
+    ct = torch.promote_types(x.dtype, torch.float32)
+    x, dt, A, B, C = (t.to(ct) for t in (x, dt, A, B, C))
     b, s, h, p = x.shape
     n = B.shape[-1]
-    S = torch.zeros(b, h, n, p, dtype=torch.float32, device=x.device)
+    S = torch.zeros(b, h, n, p, dtype=ct, device=x.device)
     ys = []
     for t in range(s):
         decay = torch.exp(dt[:, t] * A[None, :])                        # (b,h)
@@ -107,3 +109,89 @@ def ssd_oracle(x, dt, A, B, C):
         ys.append(torch.einsum("bn,bhnp->bhp", C[:, t], S))
     y = torch.stack(ys, dim=1) if ys else x.new_zeros(b, 0, h, p)
     return y, S
+
+
+def ssd_bwd_oracle(x, dt, A, B, C, dy, dS_final=None, *, chunk, matmul=torch.einsum):
+    """Gradient of ``ssd_oracle``'s (y, S_final) given dy and dS_final (None
+    is zero), step by step in the chunked form of ``csrc/ssd_bwd.cu``.
+
+    Chunks of Q = min(chunk, s) rows (the last one padded with zeros); within
+    a chunk cum = cumsum(dt A), w = dt, M_ij = (C_i . B_j) exp(cum_i - cum_j)
+    for j <= i (selected, never multiplied), G_ij = dy_i . x_j, and S_prev,
+    dS_out the state entering the chunk and the gradient of the one leaving
+    it (a reverse pass over the chunks: dS_prev = exp(cum_Q) dS_out +
+    sum_i exp(cum_i) C_i^T dy_i). Then
+      dx_j  = w_j [sum_i M_ij dy_i + exp(cum_Q - cum_j) B_j dS_out],
+      dC_i  = sum_h [sum_j G_ij w_j L_ij B_j + exp(cum_i) dy_i S_prev^T],
+      dB_j  = sum_h [sum_i G_ij w_j L_ij C_i + exp(cum_Q - cum_j) w_j x_j dS_out^T],
+      dw_j  = sum_i M_ij G_ij + exp(cum_Q - cum_j) (B_j dS_out) . x_j,
+      dcum  = rows of T minus columns of T (T_ij = M_ij w_j G_ij)
+              + exp(cum_i) C_i . (dy_i S_prev^T) - u_j, the last row also
+              + sum_j u_j + exp(cum_Q) <dS_out, S_prev>, where
+              u_j = exp(cum_Q - cum_j) w_j (B_j dS_out) . x_j,
+    da = the in-chunk reverse cumsum of dcum, ddt = dw + A da, dA = sum dt da.
+    ``matmul`` computes each product the kernel puts on its tensor cores
+    (einsum; the tests pass an emulation of the kernel's 3xTF32). Math in at
+    least float32; returns (dx, ddt, dA, dB, dC)."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    x, dt, A, B, C, dy = (t.to(ct) for t in (x, dt, A, B, C, dy))
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if s == 0:
+        return (torch.zeros_like(x), torch.zeros_like(dt), torch.zeros_like(A),
+                torch.zeros_like(B), torch.zeros_like(C))
+    Q = min(chunk, s)
+    nc = -(-s // Q)
+    pad = nc * Q - s
+    F = torch.nn.functional
+    xc, dyc = (F.pad(t, (0, 0, 0, 0, 0, pad)).reshape(b, nc, Q, h, p) for t in (x, dy))
+    w = F.pad(dt, (0, 0, 0, pad)).reshape(b, nc, Q, h)
+    Bc, Cc = (F.pad(t, (0, 0, 0, pad)).reshape(b, nc, Q, n) for t in (B, C))
+
+    cum = torch.cumsum(w * A, dim=2)                                  # (b,nc,Q,h)
+    cum_q = cum[:, :, -1]                                              # (b,nc,h)
+    e_i = torch.exp(cum)                                               # exp(cum_i)
+    e_j = torch.exp(cum_q[:, :, None] - cum)                           # exp(cum_Q - cum_j)
+    causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    L = torch.where(causal[None, None, :, :, None],
+                    torch.exp(cum[:, :, :, None] - cum[:, :, None, :]), 0.0)  # (b,nc,Q,Q,h)
+    cb = matmul("bcin,bcjn->bcij", Cc, Bc)
+
+    # the forward's states: S_prev entering each chunk
+    s_own = matmul("bcjn,bcjhp->bchnp", Bc, xc * (w * e_j)[..., None])
+    decay = torch.exp(cum_q)
+    run, s_prev = x.new_zeros(b, h, n, p), []
+    for c in range(nc):
+        s_prev.append(run)
+        run = decay[:, c, :, None, None] * run + s_own[:, c]
+    s_prev = torch.stack(s_prev, dim=1)                                # (b,nc,h,n,p)
+
+    # the reverse pass: dS_out leaving each chunk
+    ds_own = matmul("bcin,bcihp->bchnp", Cc, dyc * e_i[..., None])
+    run = x.new_zeros(b, h, n, p) if dS_final is None else dS_final.to(ct)
+    ds_out = [None] * nc
+    for c in reversed(range(nc)):
+        ds_out[c] = run
+        run = decay[:, c, :, None, None] * run + ds_own[:, c]
+    ds_out = torch.stack(ds_out, dim=1)                                # (b,nc,h,n,p)
+
+    M = cb[..., None] * L                                              # (b,nc,Q,Q,h)
+    G = matmul("bcihp,bcjhp->bcijh", dyc, xc)
+    P = G * w[:, :, None] * L                                          # G_ij w_j L_ij
+    bds = matmul("bcjn,bchnp->bcjhp", Bc, ds_out)                      # B_j dS_out
+    dys = matmul("bcihp,bchnp->bcihn", dyc, s_prev)                    # dy_i S_prev^T
+    xds = matmul("bcjhp,bchnp->bcjhn", xc, ds_out)                     # x_j dS_out^T
+    dx = w[..., None] * (matmul("bcijh,bcihp->bcjhp", M, dyc) + e_j[..., None] * bds)
+    dC = (matmul("bcijh,bcjn->bcihn", P, Bc) + e_i[..., None] * dys).sum(3)
+    dB = (matmul("bcijh,bcin->bcjhn", P, Cc) + (e_j * w)[..., None] * xds).sum(3)
+    state = e_j * (bds * xc).sum(-1)                                   # (b,nc,Q,h)
+    dw = (M * G).sum(2) + state
+    u = w * state
+    T = M * G * w[:, :, None]
+    dcum = T.sum(3) - T.sum(2) + e_i * (Cc[:, :, :, None, :] * dys).sum(-1) - u
+    dcum[:, :, -1] += u.sum(2) + decay * (ds_out * s_prev).sum((-2, -1))
+    da = dcum.flip(2).cumsum(2).flip(2)
+    ddt = dw + A * da
+    dA = (w * da).sum((0, 1, 2))
+    return (dx.reshape(b, nc * Q, h, p)[:, :s], ddt.reshape(b, nc * Q, h)[:, :s], dA,
+            dB.reshape(b, nc * Q, n)[:, :s], dC.reshape(b, nc * Q, n)[:, :s])

@@ -1,10 +1,13 @@
-"""Mamba2 SSD forward on Hopper: wrapper of ``csrc/ssd.cu``.
+"""Mamba2 SSD on Hopper: wrappers of ``csrc/ssd.cu`` and ``csrc/ssd_bwd.cu``.
 
-The CUDA kernel replaces the TPU kernel ``src/repro/kernels/ssd.py::ssd_tpu``
+The forward kernel replaces the TPU kernel ``src/repro/kernels/ssd.py::ssd_tpu``
 and computes the same function (chunked SSD, f32 in and out, every product
 in 3xTF32 on the tensor cores); its source says what bounds it and how the
 chunk loop is split across blocks. Its plain version is
-``kernels/ref.py::ssd_oracle``.
+``kernels/ref.py::ssd_oracle``. The backward kernel computes the gradient of
+that function (the JAX package takes it through XLA), from the per-chunk
+states, cum and C B^T that the forward keeps on request; its plain version
+is ``kernels/ref.py::ssd_bwd_oracle``.
 """
 from __future__ import annotations
 
@@ -18,27 +21,32 @@ HEAD_DIMS = (16, 32, 64)
 MAX_STATE = 256
 MAX_CHUNK = 4096
 TILE = 64          # C B^T rows and columns are padded to it (TQ in csrc/ssd.cu)
+MAX_STATE_BWD = 128  # the backward keeps a 64 x n tile of dB or dC in registers
 
 
-def _library():
-    lib = build.load("ssd")
-    fn = lib.ssd_fwd
+def _library(source, fn_name, n_ptr):
+    """csrc/<source>.cu, its C function `fn_name` (n_ptr pointers, six ints
+    and the stream) and <source>_error_string, typed for ctypes."""
+    lib = build.load(source)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.ssd_error_string.argtypes = [ctypes.c_int]
-        lib.ssd_error_string.restype = ctypes.c_char_p
+        err = getattr(lib, f"{source}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
     return lib
 
 
-def _check(x, dt, A, B, C, chunk):
-    """Raise ValueError for anything the kernel does not take."""
-    named = (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C))
+def _check(x, dt, A, B, C, chunk, fn="ssd_fwd", more=()):
+    """Raise ValueError for anything the kernel `fn` does not take; `more`
+    names further tensors that must lie beside x, in f32, contiguous."""
+    named = (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C), *more)
     if not (x.is_cuda and all(t.device == x.device for _, t in named)):
-        raise ValueError("ssd_fwd runs on one CUDA device; got "
+        raise ValueError(f"{fn} runs on one CUDA device; got "
                          + ", ".join(f"{k} on {t.device}" for k, t in named))
     if any(t.dtype != torch.float32 for _, t in named):
-        raise ValueError("ssd_fwd takes float32 only; got "
+        raise ValueError(f"{fn} takes float32 only; got "
                          + ", ".join(f"{k} {t.dtype}" for k, t in named))
     if x.dim() != 4:
         raise ValueError(f"want x (b,s,h,p); got {tuple(x.shape)}")
@@ -77,22 +85,26 @@ def scratch_shapes(b, s, h, p, n, chunk):
             "cb": (b, nc, Qp, Qp)}
 
 
-def ssd_fwd(x, dt, A, B, C, *, chunk=256):
+def ssd_fwd(x, dt, A, B, C, *, chunk=256, return_saved=False):
     """x (b,s,h,p), dt (b,s,h), A (h,), B/C (b,s,n): float32 on a CUDA device.
 
-    Returns (y (b,s,h,p), S_final (b,h,n,p)) in float32. Launches the
-    kernel (four CUDA kernels in order on the current stream) and adds one
-    to ``ssd_fwd.launches``."""
+    Returns (y (b,s,h,p), S_final (b,h,n,p)) in float32; with
+    ``return_saved`` also the scratch the backward reads: the state entering
+    each chunk (b,h,nc,n,p), cum (b,h,nc,Q) and C B^T (b,nc,Qp,Qp) (y and
+    S_final are the same bits either way). Launches the kernel (four CUDA
+    kernels in order on the current stream) and adds one to
+    ``ssd_fwd.launches``."""
     _check(x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
     n = B.shape[-1]
     y = torch.empty_like(x)
     s_final = torch.empty(b, h, n, p, dtype=torch.float32, device=x.device)
     if s == 0:
-        return y, s_final.zero_()
+        s_final.zero_()
+        return (y, s_final, None, None, None) if return_saved else (y, s_final)
     scratch = {name: torch.empty(shape, dtype=torch.float32, device=x.device)
                for name, shape in scratch_shapes(b, s, h, p, n, chunk).items()}
-    lib = _library()
+    lib = _library("ssd", "ssd_fwd", 11)
     with torch.cuda.device(x.device):
         err = lib.ssd_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
@@ -104,7 +116,70 @@ def ssd_fwd(x, dt, A, B, C, *, chunk=256):
         raise RuntimeError("ssd_fwd launch failed: "
                            + lib.ssd_error_string(err).decode())
     ssd_fwd.launches += 1
+    if return_saved:
+        return y, s_final, scratch["states"], scratch["cum"], scratch["cb"]
     return y, s_final
 
 
 ssd_fwd.launches = 0
+
+
+def bwd_scratch_shapes(b, s, h, p, n, chunk):
+    """Shapes of the backward's scratch for s >= 1: the gradient of each
+    chunk's state, each head's share of dB and dC (summed over heads in a
+    fixed order afterwards), and per row the partial sums of dcum (rows and
+    columns of T), dw and u, and per chunk the share of dA."""
+    Q = min(chunk, s)
+    nc = -(-s // Q)
+    return {"dstates": (b, h, nc, n, p), "dBh": (b, h, s, n), "dCh": (b, h, s, n),
+            "rowp": (b, h, nc, Q), "colp": (b, h, nc, Q), "dw": (b, h, nc, Q),
+            "u": (b, h, nc, Q), "dapart": (b, h, nc)}
+
+
+def ssd_bwd(x, dt, A, B, C, dy, dS_final, states, cum, cb, *, chunk=256):
+    """The gradient of ``ssd_fwd``: x, dt, A, B, C as it took them, dy
+    (b,s,h,p), dS_final (b,h,n,p) or None (zero, passed as a null pointer),
+    and what ``ssd_fwd(..., return_saved=True)`` kept: states, cum, cb.
+
+    Returns (dx, ddt, dA, dB, dC) in float32. Launches the kernel (seven CUDA
+    kernels in order on the current stream, no float atomics: every call
+    gives the same bits) and adds one to ``ssd_bwd.launches``."""
+    if B.shape[-1] > MAX_STATE_BWD:
+        raise ValueError(f"ssd_bwd takes a state size n <= {MAX_STATE_BWD}; got {B.shape[-1]}")
+    want_ds = (x.shape[0], x.shape[2], B.shape[-1], x.shape[-1])
+    if dy.shape != x.shape or (dS_final is not None and tuple(dS_final.shape) != want_ds):
+        raise ValueError(f"want dy {tuple(x.shape)} and dS_final {want_ds} or None; got "
+                         f"{tuple(dy.shape)}, "
+                         f"{None if dS_final is None else tuple(dS_final.shape)}")
+    more = [("dy", dy)] + ([("dS_final", dS_final)] if dS_final is not None else [])
+    _check(x, dt, A, B, C, chunk, "ssd_bwd", more)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if s == 0:
+        return (torch.zeros_like(x), torch.zeros_like(dt), torch.zeros_like(A),
+                torch.zeros_like(B), torch.zeros_like(C))
+    want = scratch_shapes(b, s, h, p, n, chunk)
+    for name, t in (("states", states), ("cum", cum), ("cb", cb)):
+        if (not t.is_cuda or t.device != x.device or t.dtype != torch.float32
+                or tuple(t.shape) != want[name] or not t.is_contiguous()):
+            raise ValueError(f"{name} must be the forward's f32 {want[name]} on {x.device}")
+    grads = tuple(torch.empty_like(t) for t in (x, dt, A, B, C))   # every element written
+    scratch = {name: torch.empty(shape, dtype=torch.float32, device=x.device)
+               for name, shape in bwd_scratch_shapes(b, s, h, p, n, chunk).items()}
+    lib = _library("ssd_bwd", "ssd_bwd", 23)
+    with torch.cuda.device(x.device):
+        err = lib.ssd_bwd(
+            *(t.data_ptr() for t in (x, dt, A, B, C, dy)),
+            None if dS_final is None else dS_final.data_ptr(),
+            *(t.data_ptr() for t in (states, cum, cb, *grads)),
+            *(scratch[k].data_ptr() for k in ("dstates", "dBh", "dCh", "rowp", "colp", "dw",
+                                              "u", "dapart")),
+            b, s, h, p, n, min(chunk, s), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError("ssd_bwd launch failed: "
+                           + lib.ssd_bwd_error_string(err).decode())
+    ssd_bwd.launches += 1
+    return grads
+
+
+ssd_bwd.launches = 0

@@ -161,8 +161,9 @@ def test_backward_kernel_on_cpu_tensor_raises():
     ("rglru_scan", lambda t: (t(1, 4, 8), t(1, 4, 8))),
 ])
 def test_ssd_and_rglru_stay_differentiable_on_cpu(fn, args):
-    """On the CPU the plain versions run under autograd (the CUDA path
-    refuses it; chip_smoke.py checks that)."""
+    """On the CPU the plain versions run under autograd (ssd as ops.SSD with
+    its plain backward; on the card rglru_scan refuses it and ssd runs K2's
+    backward kernel, which chip_smoke.py checks)."""
     inputs = args(lambda *s: torch.rand(*s, dtype=torch.float32).requires_grad_())
     out = getattr(ops, fn)(*inputs)
     out = out[0] if isinstance(out, tuple) else out

@@ -98,14 +98,32 @@ def test_ssd_products_are_3xtf32_on_tensor_cores():
     """K2 multiplies on the tensor cores (mma.sync TF32) with each operand
     split into two TF32 values rounded by cvt (3xTF32), and computes C B^T in
     a kernel of its own, once per (b, chunk): its grid has no head axis. No
-    scalar f32 FMA product is left."""
-    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "ssd.cu").read_text()
+    scalar f32 FMA product is left. The product lives in ssd_common.cuh,
+    which ssd.cu and its backward include."""
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    src = (csrc / "ssd.cu").read_text()
+    common = (csrc / "ssd_common.cuh").read_text()
+    assert '#include "ssd_common.cuh"' in src
+    src += common
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
     assert "cvt.rn.tf32.f32" in src
     assert "fmaf(" not in src
     launch = src[src.index("ssd_cb_kernel<<<"):]
     grid = launch[:launch.index(">>>")]
     assert "d.nc" in grid and "d.b" in grid and "d.h" not in grid
+
+
+def test_ssd_backward_is_3xtf32_without_atomics():
+    """K2's backward multiplies with the forward's 3xTF32 product (mma3 of
+    ssd_common.cuh), no scalar FMA product, no float atomics (every call
+    gives the same bits), and names every kernel ssd_bwd_ (the profiler's
+    bucket)."""
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    src = re.sub(r"//[^\n]*", "", (csrc / "ssd_bwd.cu").read_text())
+    assert '#include "ssd_common.cuh"' in src and "mma3(" in src
+    assert "fmaf(" not in src and "atomic" not in src and "red." not in src
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src)
+    assert len(names) == 7 and all(name.startswith("ssd_bwd_") for name in names), names
 
 
 def test_rglru_is_one_chained_kernel():

@@ -342,11 +342,11 @@ def test_fault_module_is_a_copy_of_the_reference():
     assert "repro/train/fault.py" in port[2] and port[4] == ""
 
 
-@pytest.mark.parametrize("name,item", [("ssd", "K2's backward"), ("rglru_scan", "K3's backward")])
+@pytest.mark.parametrize("name,item", [("rglru_scan", "K3's backward")])
 def test_scans_refuse_autograd_on_the_card(name, item):
-    """ops.ssd and ops.rglru_scan call this check on a CUDA tensor before
-    their kernel: under autograd they raise instead of taking the plain,
-    differentiable version."""
+    """ops.rglru_scan calls this check on a CUDA tensor before its kernel:
+    under autograd it raises instead of taking the plain, differentiable
+    version. (ops.ssd no longer does: test_ssd_runs_its_backward_kernel_on_the_card.)"""
     x = torch.zeros(2, requires_grad=True)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 2, {item}"):
         ops._no_backward(name, f"ROADMAP queue 2, {item}", x)
@@ -355,6 +355,32 @@ def test_scans_refuse_autograd_on_the_card(name, item):
         ops._no_backward(name, item, x)
     src = (ROOT / "src" / "repro_torch" / "kernels" / "ops.py").read_text()
     assert f'_no_backward("{name}", "ROADMAP queue 2, {item}"' in src
+
+
+def test_ssd_runs_its_backward_kernel_on_the_card():
+    """ops.ssd under autograd goes through ops.SSD, whose backward is K2's
+    backward kernel on a CUDA tensor: no _no_backward call for ssd is left,
+    and SSD dispatches on the device to ssd_fwd/ssd_bwd or their plain
+    versions."""
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "ops.py").read_text()
+    assert '_no_backward("ssd"' not in src and "SSD.apply(x, dt, A, B, C, chunk)" in src
+    body = src[src.index("class SSD("):src.index("def ssd(")]
+    assert "ssd_fwd(" in body and "ssd_bwd(" in body
+    assert "ref.ssd_oracle(" in body and "ref.ssd_bwd_oracle(" in body
+    x = torch.zeros(1, 4, 2, 16, requires_grad=True)
+    y, _ = ops.ssd(x, torch.zeros(1, 4, 2), torch.zeros(2), torch.zeros(1, 4, 8),
+                   torch.zeros(1, 4, 8))
+    assert type(y.grad_fn).__name__ == "SSDBackward"
+
+
+def test_launch_train_runs_mamba2_on_the_cpu(tmp_path):
+    """launch/train.py --arch mamba2-780m --smoke --device cpu: the SSD layers
+    train through ops.SSD's plain backward."""
+    args = ["--arch", "mamba2-780m", "--smoke", "--device", "cpu", "--steps", "3",
+            "--seq-len", "40", "--batch", "2", "--log-every", "1"]
+    log = launch_train.main(args + ["--ckpt-dir", str(tmp_path), "--ckpt-every", "3"])
+    assert [m["step"] for m in log] == [0, 1, 2]
+    assert all(np.isfinite(m["loss"]) for m in log)
 
 
 def test_remat_policies_run_and_stay_off_without_grad():
