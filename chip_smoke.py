@@ -43,10 +43,13 @@ a kernel's plain version:
              widths (ragged last chunks, s below a 64-row tile, a one-row
              tail), each with dS_final None and given, and at the
              mamba2-780m training shape (b 2, s 2048, h 48, chunk 256), all
-             2e-3 x max(1, max |ref|) per gradient; 20 calls bit-equal
+             2e-4 x max(1, max |ref|) per gradient; 20 calls bit-equal
              there; its time (CUDA events and profiler device time by
-             kernel) beside its bound and the plain backward; each kernel's
-             ptxas registers and spills;
+             kernel) beside its bound (P B and P^T C once per (b, chunk);
+             the first design's count, per head, beside it) and the plain
+             backward; the bytes a call adds to the peak of device memory;
+             each kernel's ptxas registers and spills (the served instance,
+             p 64 and n 128, must not spill);
              rglru_scan: the f32 sweep of tests/test_kernels.py (1e-5);
              ragged B 2 shapes (S 1, 63, 64, 65, 2049 x C 7, 130, 4095), B 1
              at the serving width, a chain of 256 chunks (B 1, S 16384) with
@@ -94,6 +97,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -281,6 +285,10 @@ def phase_build():
                 log(f"[build] {name} {short}: {lines}")
                 if name == "ssd_bwd" and ("ILi" not in short or "ILi64ELi128E" in short):
                     ssd_bwd[short] = lines      # the instance mamba2-780m runs (p 64, n 128)
+                    spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", lines)
+                    if "ILi64ELi128E" in short and spills and (int(spills.group(1))
+                                                             or int(spills.group(2))):
+                        fail(f"ssd_bwd's served instance spills: {short}: {lines}")
         if name == "rglru":               # K3's kernel: 64 steps of a and b in registers
             for entry, lines in sorted(usage.items()):
                 log(f"[build] rglru {entry}: {lines}")
@@ -735,14 +743,18 @@ def phase_kernels_ssd(torch):
     }
 
 
-def ssd_bwd_bound_ms(x, B, chunk):
+def ssd_bwd_bound_ms(x, B, chunk, per_head_pb=False):
     """Least time of one SSD backward at f32 accuracy: per (b, h, chunk) of
-    q valid rows the causal halves of dy x^T, M^T dy, P B and P^T C
-    (2 q^2 p + 2 q^2 n FLOP) and four q x n x p products (8 q n p), three
-    times over (3xTF32) at the TF32 tensor-core rate, against the bytes of
-    its inputs (x, dt, A, B, C, dy, and the forward's states, cum and C B^T;
-    training passes no dS_final) and outputs (dx, ddt, dA, dB, dC), each
-    moved once.
+    q valid rows the causal halves of dy x^T and M^T dy (2 q^2 p FLOP) and
+    four q x n x p products (8 q n p); per (b, chunk) the causal halves of
+    (sum_h P) B and (sum_h P)^T C (2 q^2 n): B and C are the same for every
+    head, so dC = sum_h P_h B + ... = (sum_h P_h) B + ..., and the least work
+    sums P over the heads before it meets B and C. `per_head_pb` counts those
+    two per (b, h, chunk), as the first design of the kernel multiplied them
+    (the bound stated for it). Three times over (3xTF32) at the TF32
+    tensor-core rate, against the bytes of its inputs (x, dt, A, B, C, dy,
+    and the forward's states, cum and C B^T; training passes no dS_final)
+    and outputs (dx, ddt, dA, dB, dC), each moved once.
     Returns (ms, bound by, ms of the operations at the f32 rate without
     tensor cores against the bytes)."""
     b, s, h, p = x.shape
@@ -751,7 +763,8 @@ def ssd_bwd_bound_ms(x, B, chunk):
     nc = -(-s // Q)
     Qp = -(-Q // 64) * 64
     rows = [min(Q, s - c * Q) for c in range(nc)]
-    flops = b * h * sum(2 * q * q * p + 2 * q * q * n + 8 * q * n * p for q in rows)
+    pb = b * (h if per_head_pb else 1) * sum(2 * q * q * n for q in rows)
+    flops = b * h * sum(2 * q * q * p + 8 * q * n * p for q in rows) + pb
     nbytes = 4 * (3 * x.numel() + 2 * b * s * h + 2 * h + 2 * 2 * B.numel()
                   + b * h * nc * (n * p + Q) + b * nc * Qp * Qp)
     t_ops, t_bytes = 3 * flops / PEAK_FLOPS["tf32"], nbytes / PEAK_BYTES
@@ -849,17 +862,28 @@ def phase_kernels_ssd_bwd(torch, ptxas):
     ms = cuda_ms(torch, run)
     device_us = device_us_by_kernel(torch, run)
     device_ms = sum(device_us.values()) / 1e3 or None
+    # the bytes one call adds to the peak of device memory: outputs and scratch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    peak_bytes = torch.cuda.max_memory_allocated() - base
+    del out
     plain_ms = cuda_ms(torch, lambda: ref.ssd_bwd_oracle(*args, dy, None, chunk=chunk),
                        reps=3, warmup=1)
     bound_ms, bound_by, simt_ms = ssd_bwd_bound_ms(args[0], args[3], chunk)
+    per_head_ms, _, _ = ssd_bwd_bound_ms(args[0], args[3], chunk, per_head_pb=True)
     device = (f"device {device_ms:.4f} ms (" + "; ".join(
         f"{_short(k)} {us:.1f} us" for k, us in device_us.items()) + ")"
         if device_ms else "device time not measured (the profiler saw no kernels)")
     log(f"[kernels] ssd_bwd training shape (b {TRAIN_BATCH}, s {TRAIN_SEQ}, h {h}, p {p}, n "
         f"{n}, chunk {chunk}): err " + ", ".join(f"{k} {v:.3g}" for k, v in train_errs.items())
-        + f"; {ms:.4f} ms by CUDA events ({bound_ms / ms:.1%} of the bound); {device}; plain "
-        f"{plain_ms:.3f}; bound {bound_ms:.4f} by {bound_by} at 3xTF32, {simt_ms:.4f} at the "
-        "f32 rate without tensor cores")
+        + f"; {ms:.4f} ms by CUDA events ({bound_ms / ms:.1%} of the bound, {per_head_ms / ms:.1%} "
+        f"of the first design's); {device}; plain {plain_ms:.3f}; bound {bound_ms:.4f} by "
+        f"{bound_by} at 3xTF32 (P B and P^T C once per (b, chunk); {per_head_ms:.4f} with them "
+        f"per head, the first design's count), {simt_ms:.4f} at the f32 rate without tensor "
+        f"cores; {peak_bytes} bytes of peak a call (outputs and scratch)")
     del args, dy, saved
     n_layers = sum(kind == "ssd" for kind in cfg.layer_kinds)
     return {
@@ -876,6 +900,7 @@ def phase_kernels_ssd_bwd(torch, ptxas):
         "library_ms": None,
         "library_note": "no single PyTorch call computes the SSD scan or its gradient",
         "bound_ms_simt_f32": n_layers * simt_ms,
+        "bound_ms_per_head_pb": n_layers * per_head_ms,
         "times_are": f"per {SSM_ARCH} train step: {n_layers} launches at the training "
                      f"shape (b {TRAIN_BATCH}, s {TRAIN_SEQ})",
         "sweep_cases": cases, "max_rel_err_by_tensor": worst,
@@ -883,7 +908,9 @@ def phase_kernels_ssd_bwd(torch, ptxas):
         "per_launch": {"ms": ms, "device_ms": device_ms, "device_us_by_kernel": device_us,
                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                        "bound_ms_simt_f32": simt_ms, "bound_share": bound_ms / ms,
-                       "max_rel_err": train_errs},
+                       "bound_ms_per_head_pb": per_head_ms,
+                       "bound_share_per_head_pb": per_head_ms / ms,
+                       "peak_bytes": peak_bytes, "max_rel_err": train_errs},
     }
 
 

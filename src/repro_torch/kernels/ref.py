@@ -122,8 +122,10 @@ def ssd_bwd_oracle(x, dt, A, B, C, dy, dS_final=None, *, chunk, matmul=torch.ein
     it (a reverse pass over the chunks: dS_prev = exp(cum_Q) dS_out +
     sum_i exp(cum_i) C_i^T dy_i). Then
       dx_j  = w_j [sum_i M_ij dy_i + exp(cum_Q - cum_j) B_j dS_out],
-      dC_i  = sum_h [sum_j G_ij w_j L_ij B_j + exp(cum_i) dy_i S_prev^T],
-      dB_j  = sum_h [sum_i G_ij w_j L_ij C_i + exp(cum_Q - cum_j) w_j x_j dS_out^T],
+      dC_i  = sum_j (sum_h P)_ij B_j + sum_h exp(cum_i) dy_i S_prev^T,
+      dB_j  = sum_i (sum_h P)_ij C_i + sum_h exp(cum_Q - cum_j) w_j x_j dS_out^T,
+            P_ij = G_ij w_j L_ij summed over the heads before it meets B and C
+            (the same for every head), as the kernel multiplies them,
       dw_j  = sum_i M_ij G_ij + exp(cum_Q - cum_j) (B_j dS_out) . x_j,
       dcum  = rows of T minus columns of T (T_ij = M_ij w_j G_ij)
               + exp(cum_i) C_i . (dy_i S_prev^T) - u_j, the last row also
@@ -182,8 +184,9 @@ def ssd_bwd_oracle(x, dt, A, B, C, dy, dS_final=None, *, chunk, matmul=torch.ein
     dys = matmul("bcihp,bchnp->bcihn", dyc, s_prev)                    # dy_i S_prev^T
     xds = matmul("bcjhp,bchnp->bcjhn", xc, ds_out)                     # x_j dS_out^T
     dx = w[..., None] * (matmul("bcijh,bcihp->bcjhp", M, dyc) + e_j[..., None] * bds)
-    dC = (matmul("bcijh,bcjn->bcihn", P, Bc) + e_i[..., None] * dys).sum(3)
-    dB = (matmul("bcijh,bcin->bcjhn", P, Cc) + (e_j * w)[..., None] * xds).sum(3)
+    Ps = P.sum(-1)                                # sum_h P: B and C are the same for every head
+    dC = matmul("bcij,bcjn->bcin", Ps, Bc) + (e_i[..., None] * dys).sum(3)
+    dB = matmul("bcij,bcin->bcjn", Ps, Cc) + ((e_j * w)[..., None] * xds).sum(3)
     state = e_j * (bds * xc).sum(-1)                                   # (b,nc,Q,h)
     dw = (M * G).sum(2) + state
     u = w * state

@@ -12,6 +12,8 @@ is ``kernels/ref.py::ssd_bwd_oracle``.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -124,16 +126,47 @@ def ssd_fwd(x, dt, A, B, C, *, chunk=256, return_saved=False):
 ssd_fwd.launches = 0
 
 
+# the backward's dx kernel walks a head group's heads per block; the groups
+# aim its grid at ~4 waves of 132 SMs (MIN_BLOCKS in csrc/ssd_bwd.cu)
+BWD_MIN_BLOCKS = 512
+
+
+def bwd_head_groups(b, h, nc, ntile):
+    """Head groups of the backward (``head_groups`` in the CUDA source): the
+    fewest, a divisor of h, that give its dx kernel, a block per (b, group,
+    chunk, 64-row tile), BWD_MIN_BLOCKS blocks, or h when none does. Each
+    group sums its heads' P in head order; the groups' sums are summed in
+    group order, so every call gives the same bits."""
+    tiles = b * nc * ntile
+    return next((g for g in range(1, h) if h % g == 0 and tiles * g >= BWD_MIN_BLOCKS), h)
+
+
 def bwd_scratch_shapes(b, s, h, p, n, chunk):
-    """Shapes of the backward's scratch for s >= 1: the gradient of each
-    chunk's state, each head's share of dB and dC (summed over heads in a
-    fixed order afterwards), and per row the partial sums of dcum (rows and
-    columns of T), dw and u, and per chunk the share of dA."""
+    """Shapes of the backward's scratch for s >= 1, in the order its C
+    function takes them: the gradient of each chunk's state and the state
+    pass's blocks' shares of its dot with the state (a block per 1024
+    floats of n x p); per head group
+    the sum of P^T over its heads for each 64 x 64 tile pair j <= i of a
+    chunk (packed, pair i (i + 1) / 2 + j) and its sums of the state terms
+    of dB and dC; per row T's partial row sums by j-tile, dcum's state term,
+    dw and u; and per chunk the share of dA."""
     Q = min(chunk, s)
     nc = -(-s // Q)
-    return {"dstates": (b, h, nc, n, p), "dBh": (b, h, s, n), "dCh": (b, h, s, n),
-            "rowp": (b, h, nc, Q), "colp": (b, h, nc, Q), "dw": (b, h, nc, Q),
-            "u": (b, h, nc, Q), "dapart": (b, h, nc)}
+    ntile = -(-Q // TILE)
+    G = bwd_head_groups(b, h, nc, ntile)
+    return {"dstates": (b, h, nc, n, p), "sdot": (b, h, nc, -(-(n * p) // 1024)),
+            "sump": (b, G, nc, ntile * (ntile + 1) // 2, TILE, TILE),
+            "dBg": (b, G, s, n), "dCg": (b, G, s, n), "rowp": (b, h, nc, ntile, Q),
+            "rows": (b, h, nc, Q), "dw": (b, h, nc, Q), "u": (b, h, nc, Q), "dapart": (b, h, nc)}
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_scratch_layout(b, s, h, p, n, chunk):
+    """The backward's scratch as one allocation: (floats in all, each part's
+    offset in bytes), every part on a 256-byte boundary."""
+    sizes = [-(-math.prod(shape) // 64) * 64
+             for shape in bwd_scratch_shapes(b, s, h, p, n, chunk).values()]
+    return sum(sizes), tuple(4 * sum(sizes[:k]) for k in range(len(sizes)))
 
 
 def ssd_bwd(x, dt, A, B, C, dy, dS_final, states, cum, cb, *, chunk=256):
@@ -141,9 +174,10 @@ def ssd_bwd(x, dt, A, B, C, dy, dS_final, states, cum, cb, *, chunk=256):
     (b,s,h,p), dS_final (b,h,n,p) or None (zero, passed as a null pointer),
     and what ``ssd_fwd(..., return_saved=True)`` kept: states, cum, cb.
 
-    Returns (dx, ddt, dA, dB, dC) in float32. Launches the kernel (seven CUDA
+    Returns (dx, ddt, dA, dB, dC) in float32. Launches the kernel (eight CUDA
     kernels in order on the current stream, no float atomics: every call
-    gives the same bits) and adds one to ``ssd_bwd.launches``."""
+    gives the same bits) and adds one to ``ssd_bwd.launches``. P is summed
+    over head groups (``bwd_head_groups``) before it meets B and C."""
     if B.shape[-1] > MAX_STATE_BWD:
         raise ValueError(f"ssd_bwd takes a state size n <= {MAX_STATE_BWD}; got {B.shape[-1]}")
     want_ds = (x.shape[0], x.shape[2], B.shape[-1], x.shape[-1])
@@ -158,23 +192,25 @@ def ssd_bwd(x, dt, A, B, C, dy, dS_final, states, cum, cb, *, chunk=256):
     if s == 0:
         return (torch.zeros_like(x), torch.zeros_like(dt), torch.zeros_like(A),
                 torch.zeros_like(B), torch.zeros_like(C))
+    if -(-s // min(chunk, s)) * b * h > 2**31 - 1:
+        raise ValueError(f"b*h*chunks = {-(-s // min(chunk, s)) * b * h} is above the grid "
+                         "limit 2^31 - 1")
     want = scratch_shapes(b, s, h, p, n, chunk)
     for name, t in (("states", states), ("cum", cum), ("cb", cb)):
         if (not t.is_cuda or t.device != x.device or t.dtype != torch.float32
                 or tuple(t.shape) != want[name] or not t.is_contiguous()):
             raise ValueError(f"{name} must be the forward's f32 {want[name]} on {x.device}")
     grads = tuple(torch.empty_like(t) for t in (x, dt, A, B, C))   # every element written
-    scratch = {name: torch.empty(shape, dtype=torch.float32, device=x.device)
-               for name, shape in bwd_scratch_shapes(b, s, h, p, n, chunk).items()}
-    lib = _library("ssd_bwd", "ssd_bwd", 23)
-    with torch.cuda.device(x.device):
-        err = lib.ssd_bwd(
-            *(t.data_ptr() for t in (x, dt, A, B, C, dy)),
+    # the scratch in one allocation (host time a call)
+    floats, offsets = _bwd_scratch_layout(b, s, h, p, n, chunk)
+    scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
+    lib = _library("ssd_bwd", "ssd_bwd", 15 + len(offsets))
+    args = (*(t.data_ptr() for t in (x, dt, A, B, C, dy)),
             None if dS_final is None else dS_final.data_ptr(),
             *(t.data_ptr() for t in (states, cum, cb, *grads)),
-            *(scratch[k].data_ptr() for k in ("dstates", "dBh", "dCh", "rowp", "colp", "dw",
-                                              "u", "dapart")),
-            b, s, h, p, n, min(chunk, s), torch.cuda.current_stream().cuda_stream)
+            *(scratch.data_ptr() + o for o in offsets), b, s, h, p, n, min(chunk, s))
+    with torch.cuda.device(x.device):
+        err = lib.ssd_bwd(*args, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("ssd_bwd launch failed: "
                            + lib.ssd_bwd_error_string(err).decode())

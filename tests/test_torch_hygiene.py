@@ -117,13 +117,19 @@ def test_ssd_backward_is_3xtf32_without_atomics():
     """K2's backward multiplies with the forward's 3xTF32 product (mma3 of
     ssd_common.cuh), no scalar FMA product, no float atomics (every call
     gives the same bits), and names every kernel ssd_bwd_ (the profiler's
-    bucket)."""
+    bucket): eight kernels, none of which sums per-head shares of dB or
+    dC."""
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     src = re.sub(r"//[^\n]*", "", (csrc / "ssd_bwd.cu").read_text())
     assert '#include "ssd_common.cuh"' in src and "mma3(" in src
     assert "fmaf(" not in src and "atomic" not in src and "red." not in src
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src)
-    assert len(names) == 7 and all(name.startswith("ssd_bwd_") for name in names), names
+    assert names == ["ssd_bwd_dstate_kernel", "ssd_bwd_state_pass_kernel", "ssd_bwd_dx_kernel",
+                     "ssd_bwd_dc_kernel", "ssd_bwd_sum_groups_kernel", "ssd_bwd_dbdc_kernel",
+                     "ssd_bwd_dt_kernel", "ssd_bwd_da_kernel"], names
+    # no kernel sums the heads' shares of dB and dC any more: P is summed
+    # over the heads before it meets B and C
+    assert "sum_heads" not in src and "dBh" not in src and "dCh" not in src
 
 
 def test_rglru_is_one_chained_kernel():

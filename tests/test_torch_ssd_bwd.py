@@ -235,26 +235,87 @@ def test_backward_kernel_refuses_what_it_does_not_take(monkeypatch, what):
 
 
 def test_backward_scratch_shapes():
-    """The training shape: the heads' shares of dB and dC are (b, h, s, n),
-    100.7 MB each; per row (b, h, nc, Q) and per chunk (b, h, nc)."""
+    """The training shape: 8 head groups; each group's sum of P^T per 64 x 64
+    tile pair j <= i of a chunk (10 pairs of 4 tiles), 21.0 MB, and its state
+    terms of dB and dC, (b, groups, s, n); per chunk the state pass's 8
+    blocks' shares of <dS_out, S_prev>; per row T's partial row sums by
+    j-tile, (b, h, nc, ntile, Q), and (b, h, nc, Q); per chunk (b, h, nc).
+    The heads' shares of dB and dC, (b, h, s, n) at 100.7 MB each, are gone."""
     got = kssd.bwd_scratch_shapes(2, 2048, 48, 64, 128, 256)
-    assert got == {"dstates": (2, 48, 8, 128, 64), "dBh": (2, 48, 2048, 128),
-                   "dCh": (2, 48, 2048, 128), "rowp": (2, 48, 8, 256),
-                   "colp": (2, 48, 8, 256), "dw": (2, 48, 8, 256), "u": (2, 48, 8, 256),
-                   "dapart": (2, 48, 8)}
-    assert 4 * int(np.prod(got["dBh"])) == 100_663_296
-    assert kssd.bwd_scratch_shapes(1, 100, 4, 64, 128, 256)["rowp"] == (1, 4, 1, 100)
+    assert got == {"dstates": (2, 48, 8, 128, 64), "sdot": (2, 48, 8, 8),
+                   "sump": (2, 8, 8, 10, 64, 64),
+                   "dBg": (2, 8, 2048, 128), "dCg": (2, 8, 2048, 128),
+                   "rowp": (2, 48, 8, 4, 256), "rows": (2, 48, 8, 256),
+                   "dw": (2, 48, 8, 256), "u": (2, 48, 8, 256), "dapart": (2, 48, 8)}
+    assert 4 * int(np.prod(got["sump"])) == 20_971_520
+    assert kssd.bwd_scratch_shapes(1, 100, 4, 64, 128, 256)["rowp"] == (1, 4, 1, 2, 100)
+    assert kssd.bwd_scratch_shapes(1, 100, 4, 64, 128, 256)["sump"] == (1, 4, 1, 3, 64, 64)
 
 
 def test_backward_source_matches_the_wrapper():
     """The backward's tile is the forward's (it reads the forward's C B^T,
-    padded to it), its state limit is the wrapper's, and its C function
-    takes the wrapper's 23 pointers."""
+    padded to it), its state limit and head-group rule are the wrapper's, and
+    its C function takes the wrapper's 25 pointers: 15 tensors and the 10 of
+    bwd_scratch_shapes."""
     src = (build.CSRC / "ssd_bwd.cu").read_text()
     assert f"constexpr int TQ = {kssd.TILE};" in src
     assert f"constexpr int MAX_N = {kssd.MAX_STATE_BWD};" in src
-    sig = src[src.index("int ssd_bwd("):src.index("int b,")]
-    assert sig.count("void*") == 23
+    assert f"constexpr int MIN_BLOCKS = {kssd.BWD_MIN_BLOCKS};" in src
+    assert "if (h % g == 0 && tiles * g >= MIN_BLOCKS) return g;" in src
+    sig = src[src.index("int ssd_bwd("):]
+    sig = sig[:sig.index("int b,")]
+    assert sig.count("void*") == 25 == 15 + len(kssd.bwd_scratch_shapes(1, 8, 2, 16, 8, 8))
+    # the scratch in the order the C function names it
+    names = [w.strip().lstrip("*") for w in sig.split("void* dC,")[1].split(",") if w.strip()]
+    assert names == [f"void* {k}" for k in kssd.bwd_scratch_shapes(1, 8, 2, 16, 8, 8)], names
     assert build.library_path("ssd_bwd").name.startswith("ssd_bwd-")
     assert [p.name for p in build.sources("ssd_bwd")] == ["ssd_bwd.cu", "ssd_common.cuh"]
     assert [p.name for p in build.sources("ssd")] == ["ssd.cu", "ssd_common.cuh"]
+
+
+# (label, b, s, h, chunk, groups): the fewest head groups, a divisor of h,
+# that give the dx kernel's grid (b x groups x chunks x 64-row tiles) 512 blocks
+GROUP_CASES = [
+    # mamba2-780m training: 2 x 8 chunks x 4 tiles = 64; 8 groups of 6 heads
+    ("mamba2-780m training", 2, 2048, 48, 256, 8),
+    # the mamba2-780m serving prefill: 4 x 8 x 4 = 128; 4 groups of 12 heads
+    ("mamba2-780m prefill", 4, 2048, 48, 256, 4),
+    # the sweep's h 3 and the served widths' h 4: too few tiles, a group a head
+    ("sweep h3", 2, 80, 3, 32, 3),
+    ("served widths h4", 1, 2049, 4, 256, 4),
+    # h 4 with enough tiles: 1 x 64 chunks x 4 = 256; 2 groups of 2 heads
+    ("h4 s16384", 1, 16384, 4, 256, 2),
+]
+
+
+@pytest.mark.parametrize("case", GROUP_CASES, ids=[c[0] for c in GROUP_CASES])
+def test_backward_head_group_rule_and_scratch(case):
+    """The head-group rule at the training and serving shapes and at the
+    sweep's h 3 and h 4: a divisor of h, the fewest that give 512 blocks or
+    h; the group sums' scratch follows the groups."""
+    _, b, s, h, chunk, groups = case
+    Q = min(chunk, s)
+    nc, ntile = -(-s // Q), -(-Q // kssd.TILE)
+    assert kssd.bwd_head_groups(b, h, nc, ntile) == groups
+    assert h % groups == 0
+    tiles = b * nc * ntile
+    assert tiles * groups >= kssd.BWD_MIN_BLOCKS or groups == h
+    assert all(h % g or tiles * g < kssd.BWD_MIN_BLOCKS for g in range(1, groups))
+    got = kssd.bwd_scratch_shapes(b, s, h, 64, 128, chunk)
+    assert got["sump"] == (b, groups, nc, ntile * (ntile + 1) // 2, 64, 64)
+    assert got["dBg"] == got["dCg"] == (b, groups, s, 128)
+
+
+@pytest.mark.parametrize("dims", [(2, 2048, 48, 64, 128, 256), (4, 2048, 48, 64, 128, 256),
+                                  (1, 16384, 4, 64, 128, 256)],
+                         ids=["training", "prefill", "h4-s16384"])
+def test_backward_scratch_has_no_per_head_share_of_db_or_dc(dims):
+    """Where the heads form fewer groups than heads, no scratch is (b, h, s,
+    n): dB and dC are summed over head groups, and the whole scratch at the
+    training shape is under 90 MB (the heads' shares alone were 201 MB)."""
+    b, s, h, p, n, chunk = dims
+    shapes = kssd.bwd_scratch_shapes(b, s, h, p, n, chunk)
+    assert shapes["dBg"][1] < h
+    assert all(shape[:2] != (b, h) or s not in shape for shape in shapes.values())
+    if dims[:3] == (2, 2048, 48):
+        assert 4 * sum(int(np.prod(shape)) for shape in shapes.values()) < 90e6
