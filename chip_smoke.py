@@ -57,7 +57,15 @@ a kernel's plain version:
              inputs (all 1e-5 x max(1, max |ref|)); 20 back-to-back calls
              bit-equal; its device time per call (profiler, memset
              included) beside torch.add of a and b, which moves the same
-             bytes
+             bytes;
+             rglru_scan_bwd: against the plain backward on the forward's
+             sweep, the ragged shapes, a chain of 256 chunks (B 1, S 16384)
+             with a in (0.99, 1) and the recurrentgemma-9b training shape
+             (B 2, S 2048, C 4096) with both distributions (1e-5 x max(1,
+             max |ref|) per gradient); 20 calls bit-equal there; its time
+             (CUDA events and profiler device time) beside its bytes bound
+             (20 B an element) and the plain backward; its ptxas registers
+             and spills
   4. serve   each arch at full width, random weights from a seed: batch 4,
              a 2048-token prompt, 32 greedy decode steps; launch counts of
              every kernel (reset just before the measured run), finite
@@ -79,16 +87,25 @@ a kernel's plain version:
              two-layer mamba2-780m (8 chunks a sequence) through K2's
              forward and backward, over every leaf and over the mixer
              leaves that reach the loss through K2 (A_log, dt_bias, in_B,
-             in_C, in_dt, in_x, conv_*)
+             in_C, in_dt, in_x, conv_*); and for a full-width two-layer
+             recurrentgemma-9b (two RG-LRU layers) through K3's forward and
+             backward, over every leaf and over the gate leaves that reach
+             the loss only through K3 (w_a, b_a, w_i, b_i, lam), the gate
+             leaves once more with lam filled to -7, so that a lies in
+             (0.993, 1) and the carry between chunks is live
   6. train   gemma3-4b at full width and depth, B 2 x S 2048 from the
              port's data, remat full, 6 AdamW steps: finite losses and
              gnorms, per step exactly the K1 forwards (34 + 30 recomputed)
              and backwards (34) remat full implies, no other kernel; then
-             rglru_scan refuses autograd on the card and ssd runs K2's
-             forward and backward kernels under it; then mamba2-780m the
-             same way (48 + 48 recomputed K2 forwards and 48 K2 backwards a
-             step, no other kernel); for each, step time, tokens/s, peak
-             memory and a profiler window of one step
+             ssd and rglru_scan under autograd on the card each run their
+             forward and backward kernels once; then mamba2-780m the same
+             way (48 + 48 recomputed K2 forwards and 48 K2 backwards a
+             step, no other kernel); then recurrentgemma-9b at full width
+             and 14 layers ((RG-LRU, RG-LRU, local) x 4 + 2 RG-LRU; its
+             38 layers' state does not fit one card): 18 K3 forwards (10 +
+             8 recomputed), 10 K3 backwards, 8 K1 forwards (4 + 4) and 4 K1
+             backwards a step, no other kernel; for each, step time,
+             tokens/s, peak memory and a profiler window of one step
 Prints the kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -162,6 +179,11 @@ BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the training shapes: gemma3-4b at B 2 (global and window 1024) and
 # recurrentgemma-9b's local layer (16 q heads over one kv head, window 2048)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6
+# recurrentgemma-9b trains at full width and reduced depth: 8.524 B
+# parameters at 12 bytes each (bf16 params and gradients, f32 mu and nu) are
+# ~102 GB; (RG-LRU, RG-LRU, local) x 4 + the (RG-LRU, RG-LRU) remainder hold
+# 3.81 B, ~38 GB of state, close to gemma3-4b's 38.87 GB
+RG_TRAIN_CUT = {"name": f"{RG_ARCH}-14layer", "num_layers": 14, "sb_repeat": 4}
 
 
 def fail(msg):
@@ -260,15 +282,16 @@ K1_BWD_ENTRIES = ("flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel")
 
 def phase_build():
     """Build every source; returns the ptxas lines of K1's served instance,
-    {"<kernel> hd <hd>": ptxas lines} of its backward's bf16 instances and
-    {kernel: ptxas lines} of K2's backward at mamba2-780m's widths."""
+    {"<kernel> hd <hd>": ptxas lines} of its backward's bf16 instances,
+    {kernel: ptxas lines} of K2's backward at mamba2-780m's widths and
+    {kernel: ptxas lines} of K3's backward."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     try:
         info = build.build_all()
     except RuntimeError as e:
         fail(str(e))
-    served, bwd, ssd_bwd = None, {}, {}
+    served, bwd, ssd_bwd, rglru_bwd = None, {}, {}, {}
     for name, item in info.items():
         usage = ptxas_usage(item["log"])
         log(f"[build] {name}: {item['seconds']:.1f}s nvcc -> {item['path'].name}; "
@@ -289,9 +312,11 @@ def phase_build():
                     if "ILi64ELi128E" in short and spills and (int(spills.group(1))
                                                              or int(spills.group(2))):
                         fail(f"ssd_bwd's served instance spills: {short}: {lines}")
-        if name == "rglru":               # K3's kernel: 64 steps of a and b in registers
+        if name in ("rglru", "rglru_bwd"):   # K3's kernels: 64 steps of two inputs in registers
             for entry, lines in sorted(usage.items()):
-                log(f"[build] rglru {entry}: {lines}")
+                log(f"[build] {name} {entry}: {lines}")
+                if name == "rglru_bwd":
+                    rglru_bwd[entry] = lines
         for entry, lines in usage.items():
             if all(part in entry for part in K1_SERVED_ENTRY):
                 served = lines
@@ -303,7 +328,7 @@ def phase_build():
     for key in sorted(bwd, key=lambda x: (x.split(" hd ")[0], int(x.split(" hd ")[1]))):
         log(f"[build] flash_attention_bwd {key}: {bwd[key]}")
     log(f"[build] all sources in {time.perf_counter() - t0:.1f}s")
-    return served, bwd, ssd_bwd
+    return served, bwd, ssd_bwd, rglru_bwd
 
 
 def phase_kernels(torch, ptxas_served):
@@ -914,11 +939,14 @@ def phase_kernels_ssd_bwd(torch, ptxas):
     }
 
 
-def rglru_bound_ms(a):
-    """Least time of one scan: 2 FLOP per element at the f32 rate without
-    tensor cores against the bytes of a and b read once and h written once."""
+def rglru_bound_ms(a, flops=2, arrays=3):
+    """Least time of one scan: `flops` per element at the f32 rate without
+    tensor cores against the bytes of `arrays` f32 arrays of a's shape, each
+    read or written once: the forward's 2 FLOP and a, b in, h out by
+    default; the backward's 3 (g = x + dh, x = a g, da = g h) and a, h, dh
+    in, da, db out, 20 bytes an element."""
     n = a.numel()
-    t_ops, t_bytes = 2 * n / PEAK_FLOPS["float32"], 3 * 4 * n / PEAK_BYTES
+    t_ops, t_bytes = flops * n / PEAK_FLOPS["float32"], arrays * 4 * n / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -1088,12 +1116,138 @@ def phase_kernels_rglru(torch):
     }
 
 
+# K3's backward against the plain backward, relative to max(1, max |ref|) per
+# gradient: the forward's bound. Within a 64-step chunk the kernel repeats the
+# plain backward's roundings; each chunk boundary adds a few ulps of |g|
+RGLRU_BWD_RTOL = 1e-5
+
+
+def phase_kernels_rglru_bwd(torch, ptxas):
+    """K3's backward against the plain backward (ref.rglru_scan_bwd_oracle) on
+    the forward's sweep, the ragged shapes, a chain of 256 chunks with a in
+    (0.99, 1) and the recurrentgemma-9b training shape; 20 calls bit-equal
+    there; times."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru as krg
+    from repro_torch.kernels.rglru import rglru_scan_bwd, rglru_scan_fwd
+
+    lib = krg._bwd_library()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    def check(a, b, what):
+        """Errors of da and db relative to max(1, max |ref|); h is K3's
+        forward of a and b, dh ~ N(0, 1)."""
+        if lib.rglru_bwd_scratch_floats(*a.shape) != krg.bwd_scratch_floats(*a.shape):
+            fail(f"rglru_scan_bwd {what}: the kernel's scratch, "
+                 f"{lib.rglru_bwd_scratch_floats(*a.shape)} floats, is not "
+                 f"kernels/rglru.py's {krg.bwd_scratch_floats(*a.shape)}")
+        h = rglru_scan_fwd(a, b)
+        dh = torch.randn(a.shape, generator=g, device="cuda")
+        got = rglru_scan_bwd(a, h, dh)
+        torch.cuda.synchronize()
+        want = ref.rglru_scan_bwd_oracle(a, h, dh)
+        errs = {}
+        for name, x, y in zip(("da", "db"), got, want):
+            if x.shape != y.shape or x.dtype != torch.float32:
+                fail(f"rglru_scan_bwd {what}: {name} is {tuple(x.shape)} {x.dtype}")
+            rel = (x - y).abs().max().item() / max(1.0, y.abs().max().item())
+            if not math.isfinite(rel) or rel > RGLRU_BWD_RTOL:
+                fail(f"rglru_scan_bwd {what}: {name} err {rel:.3g} x max(1, max |ref|) "
+                     f"> {RGLRU_BWD_RTOL}")
+            errs[name] = rel
+        errs["max_abs_ref"] = max(y.abs().max().item() for y in want)
+        return errs
+
+    worst = {"da": 0.0, "db": 0.0}
+
+    def keep(errs):
+        for k in worst:
+            worst[k] = max(worst[k], errs[k])
+        return errs
+
+    # the forward's f32 sweep (tests/test_kernels.py:57-67, its inputs as it
+    # builds them), then the ragged shapes against the 64-step chunk (now the
+    # first the reverse chain takes) and the 128-channel tile
+    for S, C in [(100, 48), (64, 64), (33, 7)]:
+        rng = np.random.RandomState(2)
+        a = 0.4 + 0.5 * torch.sigmoid(torch.tensor(rng.randn(2, S, C), dtype=torch.float32))
+        b = torch.tensor(rng.randn(2, S, C), dtype=torch.float32) * 0.1
+        keep(check(a.cuda(), b.cuda(), f"sweep S{S} C{C}"))
+    cases = 3
+    for S in (1, 63, 64, 65, 2049):
+        for C in (7, 130, 4095):
+            keep(check(*rglru_inputs(torch, g, (2, S, C)), f"ragged B2 S{S} C{C}"))
+            cases += 1
+    log(f"[kernels] rglru_scan_bwd sweep and ragged (B 2, S 1/63/64/65/2049, C 7/130/4095), "
+        f"{cases} cases: max err x max(1, max |ref|) da {worst['da']:.3g}, db "
+        f"{worst['db']:.3g} (tol {RGLRU_BWD_RTOL})")
+    cfg = get_config(RG_ARCH)
+    checks = {}
+    for what, shape, near_one in (
+            ("long chain, a in (0.99, 1)", (1, 16384, cfg.d_rnn), True),
+            ("training shape, sweep distribution", (TRAIN_BATCH, TRAIN_SEQ, cfg.d_rnn), False),
+            ("training shape, a in (0.99, 1)", (TRAIN_BATCH, TRAIN_SEQ, cfg.d_rnn), True)):
+        checks[what] = keep(check(*rglru_inputs(torch, g, shape, near_one), f"{what} {shape}"))
+        log(f"[kernels] rglru_scan_bwd {what} {shape}: err da {checks[what]['da']:.3g}, db "
+            f"{checks[what]['db']:.3g} (max |ref| {checks[what]['max_abs_ref']:.4g})")
+
+    # the training shape: 20 calls bit-equal (one fixed carry formula), times
+    a, b = rglru_inputs(torch, g, (TRAIN_BATCH, TRAIN_SEQ, cfg.d_rnn))
+    h = rglru_scan_fwd(a, b)
+    dh = torch.randn(a.shape, generator=g, device="cuda")
+    run = lambda: rglru_scan_bwd(a, h, dh)  # noqa: E731
+    outs = [run() for _ in range(20)]
+    torch.cuda.synchronize()
+    if not all(all(torch.equal(x, y) for x, y in zip(o, outs[0])) for o in outs):
+        fail("rglru_scan_bwd: 20 back-to-back calls at the training shape differ")
+    del outs
+    log("[kernels] rglru_scan_bwd training shape: 20 back-to-back calls bit-equal")
+    ms = cuda_ms(torch, run)
+    device_us = device_us_by_kernel(torch, run)
+    device_ms = sum(device_us.values()) / 1e3 or None
+    # the sequential plain backward takes 2048 steps of small kernels: 3 reps
+    plain_ms = cuda_ms(torch, lambda: ref.rglru_scan_bwd_oracle(a, h, dh), reps=3, warmup=1)
+    bound_ms, bound_by = rglru_bound_ms(a, flops=3, arrays=5)
+    del a, b, h, dh
+    device = (f"device {device_ms:.4f} ms a call ({bound_ms / device_ms:.1%} of the bound: "
+              + "; ".join(f"{_short(k)} {us:.1f} us" for k, us in device_us.items()) + ")"
+              if device_ms else "device time not measured (the profiler saw no kernels)")
+    log(f"[kernels] rglru_scan_bwd training shape (B {TRAIN_BATCH}, S {TRAIN_SEQ}, C "
+        f"{cfg.d_rnn}): {ms:.4f} ms by CUDA events ({bound_ms / ms:.1%} of the bound); "
+        f"{device}; plain {plain_ms:.3f}; bound {bound_ms:.4f} by {bound_by}; ptxas {ptxas}")
+    n_layers = sum(kind == "rglru" for kind in cfg.replace(**RG_TRAIN_CUT).layer_kinds)
+    return {
+        "name": "rglru_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_bwd.cu",
+        "replaces": "src/repro/kernels/rglru.py:41",
+        "replaces_note": "the gradient of K3's function, which the JAX package "
+                         "takes through XLA (no custom_vjp)",
+        "launches": None,                     # filled in from the train phase
+        "max_abs_err": max(worst.values()),
+        "max_err_is": "relative to max(1, max |ref|) per gradient tensor",
+        "ms": n_layers * ms, "plain_ms": n_layers * plain_ms,
+        "bound_ms": n_layers * bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the reverse recurrence",
+        "times_are": f"per {RG_TRAIN_CUT['name']} train step: {n_layers} launches at the "
+                     f"training shape (B {TRAIN_BATCH}, S {TRAIN_SEQ})",
+        "sweep_and_ragged_cases": cases, "max_rel_err_by_tensor": worst,
+        "ptxas": ptxas,
+        "per_launch": {"ms": ms, "device_ms": device_ms, "device_us_by_kernel": device_us,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bound_share": bound_ms / ms, "checks": checks},
+    }
+
+
 def _launch_counters():
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
-    from repro_torch.kernels.rglru import rglru_scan_fwd
+    from repro_torch.kernels.rglru import rglru_scan_bwd, rglru_scan_fwd
     from repro_torch.kernels.ssd import ssd_bwd, ssd_fwd
     return {"flash_attention": flash_attention_fwd, "flash_attention_bwd": flash_attention_bwd,
-            "ssd": ssd_fwd, "ssd_bwd": ssd_bwd, "rglru_scan": rglru_scan_fwd}
+            "ssd": ssd_fwd, "ssd_bwd": ssd_bwd, "rglru_scan": rglru_scan_fwd,
+            "rglru_scan_bwd": rglru_scan_bwd}
 
 
 def phase_serve(torch, arch, per_prefill):
@@ -1241,7 +1395,7 @@ def _fmt_checks(checks):
 
 
 # buckets whose every kernel the profile lines list by name
-NAMED_BUCKETS = ("ssd", "ssd_bwd", "rglru")
+NAMED_BUCKETS = ("ssd", "ssd_bwd", "rglru", "rglru_bwd")
 
 
 def _bucket(name):
@@ -1253,6 +1407,8 @@ def _bucket(name):
         return "ssd_bwd"
     if "ssd_" in name:
         return "ssd"
+    if "rglru_bwd_" in name:
+        return "rglru_bwd"
     if "rglru_" in name:
         return "rglru"
     if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
@@ -1338,7 +1494,9 @@ def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch):
 # ulps of it. The loss of the difference is therefore Model.loss's formula
 # reduced in f64 from the model's f32 logits (_loss64), and the central
 # difference is extrapolated from steps eps and eps / 2 (Richardson:
-# (4 D(eps/2) - D(eps)) / 3, error O(eps^4)).
+# (4 D(eps/2) - D(eps)) / 3, error O(eps^4)). A direction whose <g, v> is
+# smaller still takes a longer step (TRAINED's fd_steps), so that the loss
+# moves well above the rounding of the f32 forward.
 FD_RTOL, FD_STEP = 1e-2, 1e-3
 
 
@@ -1365,28 +1523,65 @@ def _unit_direction(torch, params, names, g):
     return {k: x / len(v) ** 0.5 for k, x in v.items()}
 
 
-# each trained arch: the kernels its forward and backward launch once per
-# layer, and for the gradient check its two-layer cut (superblock, repeats)
-# and the leaves whose gradient reaches the loss only through those kernels
+def _rglru_gate_leaf(k):
+    return ".mixer." in k and any(k.endswith(f".{leaf}")
+                                  for leaf in ("w_a", "b_a", "w_i", "b_i", "lam"))
+
+
+# each trained arch: by layer kind, the kernels (forward, backward) a layer of
+# that kind launches once each; the training config's cut, if any; for the
+# gradient check its two-layer cut (superblock, repeats), the leaves whose
+# gradient reaches the loss only through those kernels, if any a refill
+# (label, the leaves to fill, the value) after which those leaves are checked
+# again, and if any a longer FD step by direction
+_K1 = ("flash_attention", "flash_attention_bwd")
 TRAINED = {
-    ARCH: {"superblock": ("local", "global"), "sb_repeat": 1,
-           "kernels": ("flash_attention", "flash_attention_bwd"),
+    ARCH: {"kernels": {"local": _K1, "global": _K1},
+           "superblock": ("local", "global"), "sb_repeat": 1,
            "leaves": ("attention leaves", lambda k: ".attn." in k)},
-    SSM_ARCH: {"superblock": ("ssd",), "sb_repeat": 2, "kernels": ("ssd", "ssd_bwd"),
+    SSM_ARCH: {"kernels": {"ssd": ("ssd", "ssd_bwd")},
+               "superblock": ("ssd",), "sb_repeat": 2,
                "leaves": ("mixer leaves", lambda k: ".mixer." in k and any(
                    f".{leaf}" in k for leaf in ("A_log", "dt_bias", "in_B", "in_C", "in_dt",
                                                 "in_x", "conv_")))},
+    RG_ARCH: {"kernels": {"rglru": ("rglru_scan", "rglru_scan_bwd"), "local": _K1},
+              "train_cut": RG_TRAIN_CUT,
+              "superblock": ("rglru",), "sb_repeat": 2,
+              "leaves": ("gate leaves", _rglru_gate_leaf),
+              # softplus(-7) = 9.1e-4, so a = exp(-8 r softplus(lam)) > 0.9927:
+              # g carries across the 32 chunks of a sequence
+              "refill": ("gate leaves, lam = -7", lambda k: k.endswith(".lam"), -7.0),
+              # with the reference's decay (a < 1.5e-4) only w_i and b_i of the
+              # gate leaves move the loss: <g, v> was 5.5e-6 on the card, where
+              # steps eps and eps / 2 of FD_STEP fell 0.8% either side of it
+              # (rounding, not curvature); the loss is near linear along it
+              "fd_steps": {"gate leaves": 16 * FD_STEP, "gate leaves, lam = -7": 4 * FD_STEP}},
 }
+
+
+def _launches_per_step(cfg, arch, counters, remat):
+    """{kernel: launches} of one forward and backward of `cfg`: each layer
+    kind's forward and backward kernels (TRAINED[arch]["kernels"]) once per
+    layer of the kind, and with `remat` (full) the forward again for each
+    layer of the kind in the rematted superblock repeats; 0 for the rest."""
+    want = {name: 0 for name in counters}
+    for kind, (fwd, bwd) in TRAINED[arch]["kernels"].items():
+        n_layers = cfg.layer_kinds.count(kind)
+        want[fwd] += n_layers + (cfg.superblock.count(kind) * cfg.sb_repeat if remat else 0)
+        want[bwd] += n_layers
+    return want
 
 
 def phase_grad_check(torch, arch):
     """Full-width, two-layer `arch` (gemma3-4b: one local, one global layer;
-    mamba2-780m: two Mamba2 layers; B 1, S 2048, so gemma's window is live
-    and mamba2 runs 8 chunks) in f32: the gradient from the arch's kernel's
-    forward and backward against a central finite difference of the loss
-    along random directions, over every leaf and over the leaves whose
-    gradient reaches the loss only through that kernel (TRAINED). The
-    forwards of the difference run the forward kernel without autograd."""
+    mamba2-780m and recurrentgemma-9b: two layers of their recurrent block;
+    B 1, S 2048, so gemma's window is live, mamba2 runs 8 chunks and the
+    RG-LRU scan 32) in f32: the gradient from the arch's kernel's forward and
+    backward against a central finite difference of the loss along random
+    directions, over every leaf and over the leaves whose gradient reaches
+    the loss only through that kernel (TRAINED); where TRAINED names a
+    refill, those leaves again after it. The forwards of the difference run
+    the forward kernel without autograd."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import Model
     from repro_torch.train.data import DataConfig, make_batch
@@ -1399,100 +1594,116 @@ def phase_grad_check(torch, arch):
     model = Model(cfg, device="cuda", seed=SEED, trainable=True).float()
     batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                   global_batch=1), 0, device="cuda")
-    for fn in counters.values():
-        fn.launches = 0
-    loss, _ = model.loss(batch)
-    loss.backward()
-    torch.cuda.synchronize()
-    got = {name: fn.launches for name, fn in counters.items()}
-    want = {name: 2 if name in spec["kernels"] else 0 for name in counters}
-    if got != want:
-        fail(f"gradient check {arch}: launches {got}, want {want}")
     params = dict(model.named_parameters())
-    grads = {k: p.grad.detach().clone() for k, p in params.items()}
-    orig = {k: p.detach().clone() for k, p in params.items()}
-    model.zero_grad(set_to_none=True)
-    L0 = loss.item()
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    out = {}
     kernel_label, kernel_leaf = spec["leaves"]
-    for label, names in (("every leaf", sorted(params)),
-                         (kernel_label, sorted(k for k in params if kernel_leaf(k)))):
-        v = _unit_direction(torch, params, names, g)
-        gv = sum((grads[k].double() * v[k].double()).sum() for k in names).item()
-        eps = FD_STEP * sum(orig[k].double().square().sum() for k in names).sqrt().item()
-
-        def central(e):
-            side = {}
+    rounds = [("", [("every leaf", sorted(params)),
+                    (kernel_label, sorted(k for k in params if kernel_leaf(k)))])]
+    if "refill" in spec:
+        label, leaf, value = spec["refill"]
+        rounds.append((leaf, [(label, sorted(k for k in params if kernel_leaf(k)))]))
+    want = _launches_per_step(cfg, arch, counters, remat=False)
+    out = {}
+    for refill, directions in rounds:
+        if refill:
             with torch.no_grad():
-                for sign in (1, -1):
-                    for k in names:
-                        params[k].copy_(orig[k] + sign * e * v[k])
-                    side[sign] = _loss64(torch, model, batch)
-                for k in names:
-                    params[k].copy_(orig[k])
-            return (side[1] - side[-1]) / (2 * e)
+                for k in params:
+                    if refill(k):
+                        params[k].fill_(value)
+        for fn in counters.values():
+            fn.launches = 0
+        loss, _ = model.loss(batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        got = {name: fn.launches for name, fn in counters.items()}
+        if got != want:
+            fail(f"gradient check {arch}: launches {got}, want {want}")
+        grads = {k: p.grad.detach().clone() for k, p in params.items()}
+        orig = {k: p.detach().clone() for k, p in params.items()}
+        model.zero_grad(set_to_none=True)
+        L0 = loss.item()
+        for label, names in directions:
+            v = _unit_direction(torch, params, names, g)
+            gv = sum((grads[k].double() * v[k].double()).sum() for k in names).item()
+            step = spec.get("fd_steps", {}).get(label, FD_STEP)
+            eps = step * sum(orig[k].double().square().sum() for k in names).sqrt().item()
 
-        d1, d2 = central(eps), central(eps / 2)
-        fd = (4 * d2 - d1) / 3
-        rel = abs(fd - gv) / abs(gv)
-        out[label] = {"leaves": len(names), "eps": eps, "fd": fd, "fd_eps": d1,
-                      "fd_eps_half": d2, "grad_dot_v": gv, "rel_err": rel}
-        log(f"[grad] {cfg.name} f32 (B 1, S {TRAIN_SEQ}), direction over {label} "
-            f"({len(names)}): <g, v> {gv:.6g}, FD {fd:.6g} (central {d1:.6g} at eps "
-            f"{eps:.4g}, {d2:.6g} at eps / 2; loss {L0:.6f}); rel err {rel:.3g} "
-            f"(tol {FD_RTOL})")
-        if not (math.isfinite(rel) and rel <= FD_RTOL):
-            fail(f"gradient check {arch} over {label}: FD {fd:.6g} vs <g, v> {gv:.6g}, "
-                 f"rel err {rel:.3g} > {FD_RTOL}")
-    del model, params, grads, orig, v, loss
+            def central(e):
+                side = {}
+                with torch.no_grad():
+                    for sign in (1, -1):
+                        for k in names:
+                            params[k].copy_(orig[k] + sign * e * v[k])
+                        side[sign] = _loss64(torch, model, batch)
+                    for k in names:
+                        params[k].copy_(orig[k])
+                return (side[1] - side[-1]) / (2 * e)
+
+            d1, d2 = central(eps), central(eps / 2)
+            fd = (4 * d2 - d1) / 3
+            rel = abs(fd - gv) / abs(gv)
+            out[label] = {"leaves": len(names), "step": step, "eps": eps, "fd": fd, "fd_eps": d1,
+                          "fd_eps_half": d2, "grad_dot_v": gv, "rel_err": rel, "loss": L0}
+            log(f"[grad] {cfg.name} f32 (B 1, S {TRAIN_SEQ}), direction over {label} "
+                f"({len(names)}): <g, v> {gv:.6g}, FD {fd:.6g} (central {d1:.6g} at eps "
+                f"{eps:.4g} = {step:g} of the leaves' norm, {d2:.6g} at eps / 2; loss "
+                f"{L0:.6f}); rel err {rel:.3g} "
+                f"(tol {FD_RTOL})")
+            if not (math.isfinite(rel) and rel <= FD_RTOL):
+                fail(f"gradient check {arch} over {label}: FD {fd:.6g} vs <g, v> {gv:.6g}, "
+                     f"rel err {rel:.3g} > {FD_RTOL}")
+        del grads, orig, v, loss
+    del model, params
     torch.cuda.empty_cache()
     return out
 
 
 def phase_autograd_on_card(torch):
-    """Under autograd on the card ops.rglru_scan refuses (K3 has no backward
-    kernel yet) and ops.ssd runs K2's forward and backward kernels (one
-    launch each; the gradients against the plain backward at
-    SSD_BWD_RTOL x max(1, max |ref|))."""
+    """Under autograd on the card ops.ssd and ops.rglru_scan each run their
+    forward and backward kernels (one launch each; the gradients against the
+    plain backward at SSD_BWD_RTOL and RGLRU_BWD_RTOL x max(1, max |ref|))."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rglru import rglru_scan_bwd, rglru_scan_fwd
     from repro_torch.kernels.ssd import ssd_bwd, ssd_fwd
 
-    xs = [torch.rand(1, 64, 8, device="cuda", requires_grad=True) for _ in range(2)]
-    try:
-        ops.rglru_scan(*xs)
-    except NotImplementedError as e:
-        log(f"[train] rglru_scan under autograd on the card raises: {e}")
-    else:
-        fail("rglru_scan ran under autograd on the card (no backward kernel)")
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    args = [t.requires_grad_() for t in ssd_inputs(torch, g, 1, 100, 2, 16, 8)]
-    before = (ssd_fwd.launches, ssd_bwd.launches)
-    y, _ = ops.ssd(*args, chunk=32)
-    dy = torch.randn(y.shape, generator=g, device="cuda")
-    got = torch.autograd.grad(y, args, dy)
-    torch.cuda.synchronize()
-    launches = (ssd_fwd.launches - before[0], ssd_bwd.launches - before[1])
-    if launches != (1, 1):
-        fail(f"ops.ssd under autograd on the card: {launches} (forward, backward) "
-             "launches, want (1, 1)")
-    want = ref.ssd_bwd_oracle(*(t.detach() for t in args), dy, chunk=32)
-    err = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
-              for a, b in zip(got, want))
-    if not err <= SSD_BWD_RTOL:
-        fail(f"ops.ssd under autograd on the card: gradient err {err:.3g} > {SSD_BWD_RTOL}")
-    log(f"[train] ssd under autograd on the card runs K2's forward and backward kernels "
-        f"(one launch each); gradient err {err:.3g} x max(1, max |ref|)")
+    ssd_args = [t.requires_grad_() for t in ssd_inputs(torch, g, 1, 100, 2, 16, 8)]
+    # a in (0.99, 1) over 4 chunks and a ragged one, 130 channels
+    rg_args = [t.requires_grad_() for t in rglru_inputs(torch, g, (2, 300, 130), True)]
+    for name, (fwd, bwd), args, call, plain, rtol in (
+            ("ssd", (ssd_fwd, ssd_bwd), ssd_args, lambda *x: ops.ssd(*x, chunk=32)[0],
+             lambda *x: ref.ssd_bwd_oracle(*x, chunk=32), SSD_BWD_RTOL),
+            ("rglru_scan", (rglru_scan_fwd, rglru_scan_bwd), rg_args, ops.rglru_scan,
+             lambda a, b, dh: ref.rglru_scan_bwd_oracle(a, ref.rglru_scan_oracle(a, b), dh),
+             RGLRU_BWD_RTOL)):
+        before = (fwd.launches, bwd.launches)
+        y = call(*args)
+        dy = torch.randn(y.shape, generator=g, device="cuda")
+        got = torch.autograd.grad(y, args, dy)
+        torch.cuda.synchronize()
+        launches = (fwd.launches - before[0], bwd.launches - before[1])
+        if launches != (1, 1):
+            fail(f"ops.{name} under autograd on the card: {launches} (forward, backward) "
+                 "launches, want (1, 1)")
+        want = plain(*(t.detach() for t in args), dy)
+        err = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                  for a, b in zip(got, want))
+        if not err <= rtol:
+            fail(f"ops.{name} under autograd on the card: gradient err {err:.3g} > {rtol}")
+        log(f"[train] {name} under autograd on the card runs its forward and backward "
+            f"kernels (one launch each); gradient err {err:.3g} x max(1, max |ref|) "
+            f"(tol {rtol})")
 
 
 def phase_train(torch, card, arch):
-    """Train `arch` at full width and depth, the serve phase's config:
-    TRAIN_STEPS steps of B TRAIN_BATCH x S TRAIN_SEQ from the port's data,
-    remat full, one microbatch. Gates: finite losses and gnorms; per step
-    the launches remat full implies of the arch's forward and backward
-    kernels, TRAINED[arch]["kernels"] (a forward per layer, again for each layer of the
-    rematted superblocks, and a backward per layer); no other kernel.
-    Returns the run's numbers and launches."""
+    """Train `arch` at full width, the serve phase's config at full depth or
+    cut as TRAINED[arch]["train_cut"] says: TRAIN_STEPS steps of B
+    TRAIN_BATCH x S TRAIN_SEQ from the port's data, remat full, one
+    microbatch. Gates: finite losses and gnorms; per step the launches remat
+    full implies of each layer kind's forward and backward kernels,
+    TRAINED[arch]["kernels"] (a forward per layer of the kind, again for each
+    layer of the kind in the rematted superblocks, and a backward per layer
+    of the kind); no other kernel. Returns the run's numbers and launches."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.models import Model
@@ -1500,13 +1711,9 @@ def phase_train(torch, card, arch):
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import init_train_state, make_train_step
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(**TRAINED[arch].get("train_cut", {}))
     counters = _launch_counters()
-    n_layers = cfg.num_layers
-    n_remat = len(cfg.superblock) * cfg.sb_repeat
-    fwd, bwd = TRAINED[arch]["kernels"]
-    want = {name: 0 for name in counters}
-    want.update({fwd: n_layers + n_remat, bwd: n_layers})
+    want = _launches_per_step(cfg, arch, counters, remat=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda", seed=SEED, trainable=True)
@@ -1547,13 +1754,15 @@ def phase_train(torch, card, arch):
     log(f"[train] {cfg.name} B {TRAIN_BATCH} x S {TRAIN_SEQ}, remat full, {TRAIN_STEPS} "
         f"steps: losses {[round(x, 6) for x in losses]}; median step (steps 2-"
         f"{TRAIN_STEPS}) {step_ms:.2f} ms, {tok_s:.0f} tokens/s; peak memory "
-        f"{peak / 1e9:.2f} GB ({peak} bytes); launches {launches}; {card}")
+        f"{peak / 1e9:.2f} GB ({peak} bytes); launches {launches} ({want} a step); {card}")
     _, *window = profile_window(torch, lambda: step_fn(state, next(it)))
     buckets = log_window(cfg.name, "train step", *window)
     del model, state, step_fn, it, batch, metrics
     torch.cuda.empty_cache()
-    return {"losses": losses, "gnorms": gnorms, "step_ms": step_ms, "tokens_per_s": tok_s,
+    return {"config": cfg.name, "layers": cfg.num_layers, "losses": losses, "gnorms": gnorms,
+            "step_ms": step_ms, "tokens_per_s": tok_s,
             "peak_bytes": peak, "state_bytes": state_bytes, "launches": launches,
+            "launches_per_step": want,
             "step_times_ms": [t * 1e3 for t in times], "profile_ms": buckets}
 
 
@@ -1583,14 +1792,15 @@ def main(argv=None):
         return out
 
     card = timed("device", phase_device, torch)
-    ptxas_served, ptxas_bwd, ptxas_ssd_bwd = timed("build", phase_build)
+    ptxas_served, ptxas_bwd, ptxas_ssd_bwd, ptxas_rglru_bwd = timed("build", phase_build)
     flash = timed("kernels flash_attention", phase_kernels, torch, ptxas_served)
     flash["lse"] = timed("kernels flash_attention lse", phase_kernels_flash_lse, torch)
     flash_bwd = timed("kernels flash_attention_bwd", phase_kernels_flash_bwd, torch, ptxas_bwd)
     ssd = timed("kernels ssd", phase_kernels_ssd, torch)
     ssd_bwd = timed("kernels ssd_bwd", phase_kernels_ssd_bwd, torch, ptxas_ssd_bwd)
     scan = timed("kernels rglru_scan", phase_kernels_rglru, torch)
-    kernels = [flash, flash_bwd, ssd, ssd_bwd, scan]
+    scan_bwd = timed("kernels rglru_scan_bwd", phase_kernels_rglru_bwd, torch, ptxas_rglru_bwd)
+    kernels = [flash, flash_bwd, ssd, ssd_bwd, scan, scan_bwd]
     if args.kernels_only:
         log(f"[time] seconds by phase: {seconds}")
         log(json.dumps({"kernels": kernels}))
@@ -1616,12 +1826,17 @@ def main(argv=None):
     ssm_grad = timed(f"grad {SSM_ARCH}", phase_grad_check, torch, SSM_ARCH)
     timed("autograd on the card", phase_autograd_on_card, torch)
     ssm_train = timed(f"train {SSM_ARCH}", phase_train, torch, card, SSM_ARCH)
+    rg_grad = timed(f"grad {RG_ARCH}", phase_grad_check, torch, RG_ARCH)
+    rg_train = timed(f"train {RG_ARCH}", phase_train, torch, card, RG_ARCH)
     flash["launches_by_path"] = {f"serve {a}": n["flash_attention"] for a, n in by_arch.items()
                                  if n["flash_attention"]}
     flash["launches_by_path"][f"train {ARCH}"] = train["launches"]["flash_attention"]
+    flash["launches_by_path"][f"train {RG_ARCH}"] = rg_train["launches"]["flash_attention"]
     flash["launches"] = sum(flash["launches_by_path"].values())
-    flash_bwd["launches"] = train["launches"]["flash_attention_bwd"]
-    flash_bwd["launches_by_path"] = {f"train {ARCH}": flash_bwd["launches"]}
+    flash_bwd["launches_by_path"] = {
+        f"train {ARCH}": train["launches"]["flash_attention_bwd"],
+        f"train {RG_ARCH}": rg_train["launches"]["flash_attention_bwd"]}
+    flash_bwd["launches"] = sum(flash_bwd["launches_by_path"].values())
     flash_bwd["grad_check"] = grad
     flash_bwd["train"] = {k: v for k, v in train.items() if k != "launches"}
     ssd["launches_by_path"] = {f"serve {SSM_ARCH}": by_arch[SSM_ARCH]["ssd"],
@@ -1631,7 +1846,13 @@ def main(argv=None):
     ssd_bwd["launches_by_path"] = {f"train {SSM_ARCH}": ssd_bwd["launches"]}
     ssd_bwd["grad_check"] = ssm_grad
     ssd_bwd["train"] = {k: v for k, v in ssm_train.items() if k != "launches"}
-    scan["launches"] = by_arch[RG_ARCH]["rglru_scan"]
+    scan["launches_by_path"] = {f"serve {RG_ARCH}": by_arch[RG_ARCH]["rglru_scan"],
+                                f"train {RG_ARCH}": rg_train["launches"]["rglru_scan"]}
+    scan["launches"] = sum(scan["launches_by_path"].values())
+    scan_bwd["launches"] = rg_train["launches"]["rglru_scan_bwd"]
+    scan_bwd["launches_by_path"] = {f"train {RG_ARCH}": scan_bwd["launches"]}
+    scan_bwd["grad_check"] = rg_grad
+    scan_bwd["train"] = {k: v for k, v in rg_train.items() if k != "launches"}
     log(f"[time] seconds by phase: {seconds}")
     log(json.dumps({"kernels": kernels}))
     log(card)

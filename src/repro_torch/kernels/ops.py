@@ -4,13 +4,12 @@ They adapt the model's layouts to the kernels' and dispatch on the device of
 the tensors: a CUDA tensor launches the Hopper kernel, a CPU tensor takes the
 kernel's plain version in ``ref.py``. Counterpart of ``src/repro/kernels/ops.py``.
 
-``flash_attention`` and ``ssd`` are differentiable: when autograd needs
-their gradient they run as ``FlashAttention`` and ``SSD``, whose forwards
-also keep what the backward reads (the rows' logsumexp; the per-chunk
-states, cum and C B^T) and whose backwards are K1's and K2's backward
-kernels (the plain backwards on the CPU). ``rglru_scan`` has no backward
-kernel yet: on a CUDA tensor it refuses to run under autograd rather than
-fall back to its plain, differentiable version.
+``flash_attention``, ``ssd`` and ``rglru_scan`` are differentiable: when
+autograd needs their gradient they run as ``FlashAttention``, ``SSD`` and
+``RGLRU``, whose forwards also keep what the backward reads (the rows'
+logsumexp; the per-chunk states, cum and C B^T; the scan's a and h) and
+whose backwards are K1's, K2's and K3's backward kernels (the plain
+backwards on the CPU).
 """
 from __future__ import annotations
 
@@ -19,7 +18,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                  flash_attention_fwd)
-from repro_torch.kernels.rglru import rglru_scan_fwd
+from repro_torch.kernels.rglru import rglru_scan_bwd, rglru_scan_fwd
 from repro_torch.kernels.ssd import ssd_bwd, ssd_fwd
 
 
@@ -73,27 +72,37 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     return o.reshape(B, KV, G, S, hd).movedim(3, 1)
 
 
-def _no_backward(name, item, *tensors):
-    if _needs_grad(*tensors):
-        raise NotImplementedError(
-            f"{name} has no backward kernel yet ({item}); on a CUDA device it "
-            "runs only without autograd (torch.no_grad, or inputs that do not "
-            "require grad)")
+class RGLRU(torch.autograd.Function):
+    """K3, a and b (B,S,C) float32: the forward saves a and its output h; the
+    backward returns da and db."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = rglru_scan_fwd(a, b) if a.device.type == "cuda" else ref.rglru_scan_oracle(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        fn = rglru_scan_bwd if a.device.type == "cuda" else ref.rglru_scan_bwd_oracle
+        return fn(a, h, dh.contiguous())
 
 
 def rglru_scan(a, b):
     """(B,S,C) recurrence coefficients -> h (B,S,C) float32.
 
     Both go to contiguous float32 first, as the TPU kernel does; its block
-    sizes shape only the TPU grid and have no counterpart here."""
-    if a.device.type == "cuda":
-        _no_backward("rglru_scan", "ROADMAP queue 2, K3's backward", a, b)
+    sizes shape only the TPU grid and have no counterpart here. Under
+    autograd the call runs as ``RGLRU``."""
+    if a.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"rglru_scan: no kernel for device {a.device}")
     a, b = a.float().contiguous(), b.float().contiguous()
+    if _needs_grad(a, b):
+        return RGLRU.apply(a, b)
     if a.device.type == "cuda":
         return rglru_scan_fwd(a, b)
-    if a.device.type == "cpu":
-        return ref.rglru_scan_oracle(a, b)
-    raise ValueError(f"rglru_scan: no kernel for device {a.device}")
+    return ref.rglru_scan_oracle(a, b)
 
 
 class SSD(torch.autograd.Function):

@@ -80,14 +80,34 @@ def flash_attention_bwd_oracle(q, k, v, o, lse, do, *, scale=None, causal=True,
 
 def rglru_scan_oracle(a, b):
     """Sequential linear recurrence h_t = a_t h_{t-1} + b_t, h_0 = 0.
-    (B,S,C) -> h (B,S,C), in float32."""
-    a, b = a.float(), b.float()
+    (B,S,C) -> h (B,S,C), in at least float32 (float64 inputs stay float64)."""
+    ct = torch.promote_types(a.dtype, torch.float32)
+    a, b = a.to(ct), b.to(ct)
     h = a.new_zeros(a.shape[0], a.shape[2])
     hs = []
     for t in range(a.shape[1]):
         h = a[:, t] * h + b[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1) if hs else torch.zeros_like(a)
+
+
+def rglru_scan_bwd_oracle(a, h, dh):
+    """Gradient of ``rglru_scan_oracle`` given its output h and dh: the
+    reverse scan g_t = dh_t + a_{t+1} g_{t+1} (g past the end is 0), then
+    db_t = g_t and da_t = g_t h_{t-1} (h_{-1} = 0, so da_0 = 0). Each step
+    rounds a_{t+1} g_{t+1}, then adds dh_t, as ``csrc/rglru_bwd.cu`` does.
+    (B,S,C) -> (da, db), in at least float32 (float64 inputs stay float64)."""
+    ct = torch.promote_types(a.dtype, torch.float32)
+    a, h, dh = a.to(ct), h.to(ct), dh.to(ct)
+    S = a.shape[1]
+    gs = [None] * S
+    for t in reversed(range(S)):
+        gs[t] = dh[:, t] if t == S - 1 else dh[:, t] + a[:, t + 1] * gs[t + 1]
+    if not gs:
+        return torch.zeros_like(a), torch.zeros_like(a)
+    g = torch.stack(gs, dim=1)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return g * h_prev, g
 
 
 def ssd_oracle(x, dt, A, B, C):

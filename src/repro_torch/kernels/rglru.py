@@ -1,10 +1,13 @@
-"""RG-LRU linear-recurrence scan on Hopper: wrapper of ``csrc/rglru.cu``.
+"""RG-LRU linear-recurrence scan on Hopper: wrappers of ``csrc/rglru.cu``
+and of its backward, ``csrc/rglru_bwd.cu``.
 
-The CUDA kernel replaces the TPU kernel
+The forward kernel replaces the TPU kernel
 ``src/repro/kernels/rglru.py::rglru_scan_tpu`` and computes the same function
-(h_t = a_t h_{t-1} + b_t over (B,S,C), h_0 = 0, f32); its source says what
-bounds it and how the carry is handed from one time chunk to the next. Its
-plain version is ``kernels/ref.py::rglru_scan_oracle``.
+(h_t = a_t h_{t-1} + b_t over (B,S,C), h_0 = 0, f32); the backward kernel
+computes its gradient, which the JAX package takes through XLA. Each source
+says what bounds it and how the carry is handed from one time chunk to the
+next. Their plain versions are ``kernels/ref.py::rglru_scan_oracle`` and
+``rglru_scan_bwd_oracle``.
 """
 from __future__ import annotations
 
@@ -25,6 +28,14 @@ def scratch_floats(B, S, C):
     return 2 * (1 + B * max(nc - 1, 0) * C)
 
 
+def bwd_scratch_floats(B, S, C):
+    """Floats of scratch the backward kernel takes for (B,S,C), as the C
+    function ``rglru_bwd_scratch_floats`` counts them: the tile counter and one
+    hand-off word per (b, chunk, channel) for every chunk but the first, 8
+    bytes each."""
+    return scratch_floats(B, S, C)
+
+
 def _library():
     lib = build.load("rglru")
     fn = lib.rglru_scan_fwd
@@ -38,18 +49,32 @@ def _library():
     return lib
 
 
-def _check(a, b):
-    """Raise ValueError for anything the kernel does not take."""
-    if not (a.is_cuda and b.device == a.device):
-        raise ValueError(f"rglru_scan_fwd runs on one CUDA device; got a on "
-                         f"{a.device}, b on {b.device}")
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise ValueError(f"rglru_scan_fwd takes float32 only; got a {a.dtype}, "
-                         f"b {b.dtype}")
-    if a.dim() != 3 or a.shape != b.shape:
-        raise ValueError(f"want a and b of one shape (B,S,C); got "
-                         f"{tuple(a.shape)} and {tuple(b.shape)}")
-    for name, t in (("a", a), ("b", b)):
+def _bwd_library():
+    lib = build.load("rglru_bwd")
+    fn = lib.rglru_scan_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.rglru_bwd_scratch_floats.argtypes = [ctypes.c_int] * 3
+        lib.rglru_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.rglru_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.rglru_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(fn, **tensors):
+    """Raise ValueError for anything the kernel ``fn`` does not take."""
+    x = next(iter(tensors.values()))
+    if not (x.is_cuda and all(t.device == x.device for t in tensors.values())):
+        raise ValueError(f"{fn} runs on one CUDA device; got " + ", ".join(
+            f"{n} on {t.device}" for n, t in tensors.items()))
+    if any(t.dtype != torch.float32 for t in tensors.values()):
+        raise ValueError(f"{fn} takes float32 only; got " + ", ".join(
+            f"{n} {t.dtype}" for n, t in tensors.items()))
+    if x.dim() != 3 or any(t.shape != x.shape for t in tensors.values()):
+        raise ValueError(f"want {', '.join(tensors)} of one shape (B,S,C); got " + " and ".join(
+            str(tuple(t.shape)) for t in tensors.values()))
+    for name, t in tensors.items():
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
@@ -59,7 +84,7 @@ def rglru_scan_fwd(a, b):
 
     Zeroes the kernel's scratch (one memset) and launches its one CUDA kernel
     on the current stream, and adds one to ``rglru_scan_fwd.launches``."""
-    _check(a, b)
+    _check("rglru_scan_fwd", a=a, b=b)
     B, S, C = a.shape
     h = torch.empty_like(a)
     if h.numel() == 0:
@@ -79,3 +104,31 @@ def rglru_scan_fwd(a, b):
 
 
 rglru_scan_fwd.launches = 0
+
+
+def rglru_scan_bwd(a, h, dh):
+    """a, h, dh (B,S,C): float32 on a CUDA device, h the forward's output ->
+    (da, db) (B,S,C) float32, the gradient of ``rglru_scan_fwd``'s h.
+
+    Zeroes the kernel's scratch (one memset) and launches its one CUDA kernel
+    on the current stream, and adds one to ``rglru_scan_bwd.launches``."""
+    _check("rglru_scan_bwd", a=a, h=h, dh=dh)
+    B, S, C = a.shape
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    if a.numel() == 0:
+        return da, db
+    lib = _bwd_library()
+    scratch = torch.empty(lib.rglru_bwd_scratch_floats(B, S, C), dtype=torch.float32,
+                          device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.rglru_scan_bwd(a.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(),
+                                 db.data_ptr(), scratch.data_ptr(), B, S, C,
+                                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError("rglru_scan_bwd launch failed: "
+                           + lib.rglru_bwd_error_string(err).decode())
+    rglru_scan_bwd.launches += 1
+    return da, db
+
+
+rglru_scan_bwd.launches = 0

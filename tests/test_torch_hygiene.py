@@ -147,6 +147,25 @@ def test_rglru_is_one_chained_kernel():
     assert names and all(name.startswith("rglru_") for name in names), names
 
 
+def test_rglru_backward_is_one_chained_kernel_without_atomics():
+    """K3's backward, in its own source, is one CUDA kernel and one memset a
+    call: tiles taken from an atomic counter (never from blockIdx), the
+    carry handed on through one 64-bit word with an acquire load and a
+    release store, no float atomics (the counter's increment is the only
+    atomic read-modify-write), and every kernel named rglru_ (the
+    profiler's bucket)."""
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "rglru_bwd.cu").read_text()
+    src = re.sub(r"//[^\n]*", "", src)                   # the code, not its notes
+    assert src.count("<<<") == 1 and src.count("cudaMemsetAsync(") == 1
+    assert src.count("atomicAdd(") == 1 and "atomicAdd(counter, 1u)" in src
+    assert not re.search(r"atomic(Sub|Exch|Min|Max|Inc|Dec|CAS|And|Or|Xor)|red\.|fetch_add", src)
+    assert "blockIdx" not in src
+    assert "load(cuda::memory_order_acquire)" in src
+    assert "cuda::memory_order_release" in src and "memory_order_relaxed" not in src
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src)
+    assert names and all(name.startswith("rglru_") for name in names), names
+
+
 def _device_defaults(tree):
     """(where, default) of every ``device`` parameter with a default and
     every ``--device`` flag of a file."""

@@ -342,19 +342,19 @@ def test_fault_module_is_a_copy_of_the_reference():
     assert "repro/train/fault.py" in port[2] and port[4] == ""
 
 
-@pytest.mark.parametrize("name,item", [("rglru_scan", "K3's backward")])
-def test_scans_refuse_autograd_on_the_card(name, item):
-    """ops.rglru_scan calls this check on a CUDA tensor before its kernel:
-    under autograd it raises instead of taking the plain, differentiable
-    version. (ops.ssd no longer does: test_ssd_runs_its_backward_kernel_on_the_card.)"""
-    x = torch.zeros(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 2, {item}"):
-        ops._no_backward(name, f"ROADMAP queue 2, {item}", x)
-    ops._no_backward(name, item, x.detach())
-    with torch.no_grad():
-        ops._no_backward(name, item, x)
+def test_rglru_runs_its_backward_kernel_on_the_card():
+    """ops.rglru_scan under autograd goes through ops.RGLRU, whose backward
+    is K3's backward kernel on a CUDA tensor: no refusal is left, and RGLRU
+    dispatches on the device to rglru_scan_fwd/rglru_scan_bwd or their plain
+    versions."""
     src = (ROOT / "src" / "repro_torch" / "kernels" / "ops.py").read_text()
-    assert f'_no_backward("{name}", "ROADMAP queue 2, {item}"' in src
+    assert "_no_backward" not in src and "RGLRU.apply(a, b)" in src
+    body = src[src.index("class RGLRU("):src.index("def rglru_scan(")]
+    assert "rglru_scan_fwd(" in body and "rglru_scan_bwd " in body
+    assert "ref.rglru_scan_oracle(" in body and "ref.rglru_scan_bwd_oracle" in body
+    a = torch.full((1, 4, 8), 0.5, requires_grad=True)
+    h = ops.rglru_scan(a, torch.zeros(1, 4, 8))
+    assert type(h.grad_fn).__name__ == "RGLRUBackward"
 
 
 def test_ssd_runs_its_backward_kernel_on_the_card():
@@ -377,6 +377,17 @@ def test_launch_train_runs_mamba2_on_the_cpu(tmp_path):
     """launch/train.py --arch mamba2-780m --smoke --device cpu: the SSD layers
     train through ops.SSD's plain backward."""
     args = ["--arch", "mamba2-780m", "--smoke", "--device", "cpu", "--steps", "3",
+            "--seq-len", "40", "--batch", "2", "--log-every", "1"]
+    log = launch_train.main(args + ["--ckpt-dir", str(tmp_path), "--ckpt-every", "3"])
+    assert [m["step"] for m in log] == [0, 1, 2]
+    assert all(np.isfinite(m["loss"]) for m in log)
+
+
+def test_launch_train_runs_recurrentgemma_on_the_cpu(tmp_path):
+    """launch/train.py --arch recurrentgemma-9b --smoke --device cpu: the
+    RG-LRU layers train through ops.RGLRU's plain backward, the local
+    layers through ops.FlashAttention's."""
+    args = ["--arch", "recurrentgemma-9b", "--smoke", "--device", "cpu", "--steps", "3",
             "--seq-len", "40", "--batch", "2", "--log-every", "1"]
     log = launch_train.main(args + ["--ckpt-dir", str(tmp_path), "--ckpt-every", "3"])
     assert [m["step"] for m in log] == [0, 1, 2]
