@@ -8,12 +8,17 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU or to
 a kernel's plain version:
   1. device  the card's name and power limit (nvidia-smi), torch and CUDA
   2. build   compile every CUDA source of src/repro_torch/kernels/csrc (nvcc,
-             sm_90a, one process per source, all at once)
+             sm_90a, one process per source, all at once); ptxas registers
+             and spills of K1's served bf16 instances (hd 256 and hd 128)
   3. kernels each kernel against its plain version on the card, on the same
              inputs; medians of CUDA-event times:
-             flash_attention: the gemma3-4b serving shapes and the
-             recurrentgemma-9b local shape in bf16 (3e-2), each with its
-             share of the bound and its ratio to SDPA; a bf16 sweep over
+             flash_attention: the serving shapes in bf16 (3e-2), each with
+             its share of the bound and its ratio to SDPA: gemma3-4b's global
+             and local layers, recurrentgemma-9b's local layer, qwen3-8b's
+             layer (H 32 over KV 8, hd 128; granite-3-8b's is the same shape,
+             timed once) and gemma3-12b's global and local layers (H 16 over
+             KV 8, hd 256, window 1024), and K1's time per prefill of each
+             arch; a bf16 sweep over
              every head dim, S of 1, 80, 200, 328, 2049 and 3000, GQA 1, 2
              and 16, Sq != Sk and causal, windowed and non-causal masks
              (3e-2);
@@ -22,12 +27,14 @@ a kernel's plain version:
              plain logsumexp (1e-5 f32, 1e-2 bf16), the time with and
              without it at gemma global;
              flash_attention_bwd: the same 22-case sweep in bf16 and f32 and
-             the training shapes (gemma3-4b global and window 1024 at B 2,
+             the training shapes at B 2 (gemma3-4b global and window 1024,
              recurrentgemma-9b's local layer, where the dK/dV kernel splits
-             the 16 query heads), against the plain backward (relative to
+             the 16 query heads, qwen3-8b's layer, gemma3-12b's global and
+             local layers), against the plain backward (relative to
              max(1, max |ref|): f32 1e-4, bf16 2e-2 against the bf16 inputs
-             upcast to f32); 20 calls bit-equal at gemma global and at
-             recurrentgemma local; its time beside the bound, the plain
+             upcast to f32); 20 calls bit-equal at gemma global, at
+             recurrentgemma local and at qwen3-8b's shape; its time beside
+             the bound, the plain
              backward and SDPA's backward (its backend recorded, as for the
              forward's SDPA yardstick); each bf16 backward kernel's ptxas
              registers and spills at every head dim;
@@ -77,6 +84,8 @@ a kernel's plain version:
              sequence): 48 ssd launches per prefill; recurrentgemma-9b
              (window 2048: the decode checks at 2049 and 2080 tokens run
              the window mask and wrap the ring): 26 rglru_scan and 12
+             flash_attention launches per prefill; qwen3-8b, granite-3-8b
+             and gemma3-12b (window 1024, ring live): 36, 40 and 48
              flash_attention launches per prefill; none in decode; no
              backward launch
   5. grad    a full-width two-layer gemma3-4b (one local, one global layer,
@@ -92,7 +101,9 @@ a kernel's plain version:
              backward, over every leaf and over the gate leaves that reach
              the loss only through K3 (w_a, b_a, w_i, b_i, lam), the gate
              leaves once more with lam filled to -7, so that a lies in
-             (0.993, 1) and the carry between chunks is live
+             (0.993, 1) and the carry between chunks is live; and for a
+             full-width two-layer qwen3-8b (two global layers: K1 at hd 128
+             over GQA 4) over every leaf and over the attention leaves
   6. train   gemma3-4b at full width and depth, B 2 x S 2048 from the
              port's data, remat full, 6 AdamW steps: finite losses and
              gnorms, per step exactly the K1 forwards (34 + 30 recomputed)
@@ -104,8 +115,11 @@ a kernel's plain version:
              and 14 layers ((RG-LRU, RG-LRU, local) x 4 + 2 RG-LRU; its
              38 layers' state does not fit one card): 18 K3 forwards (10 +
              8 recomputed), 10 K3 backwards, 8 K1 forwards (4 + 4) and 4 K1
-             backwards a step, no other kernel; for each, step time,
-             tokens/s, peak memory and a profiler window of one step
+             backwards a step, no other kernel; then qwen3-8b at 16 layers
+             (32 K1 forwards, 16 backwards a step), granite-3-8b at 18 (36,
+             18) and gemma3-12b at 12, two repeats of (5 local + 1 global)
+             (24, 12), each at full width (DENSE_TRAIN_CUTS); for each, step
+             time, tokens/s, peak memory and a profiler window of one step
 Prints the kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -131,6 +145,11 @@ PEAK_BYTES = 3.35e12
 ARCH, BATCH, PROMPT, STEPS, SEED = "gemma3-4b", 4, 2048, 32, 0
 SSM_ARCH = "mamba2-780m"
 RG_ARCH = "recurrentgemma-9b"
+# the other dense archs, on K1 alone: qwen3-8b and granite-3-8b (32 q heads
+# over 8 kv heads, hd 128, every layer global) and gemma3-12b (16 over 8, hd
+# 256, 5 local with window 1024 : 1 global)
+QWEN, GRANITE, G12 = "qwen3-8b", "granite-3-8b", "gemma3-12b"
+DENSE_ARCHS = (QWEN, GRANITE, G12)
 # decode vs full forward, relative to the largest logit: bf16 rounds every
 # layer's output (2^-9 relative) and decode rounds its scores to bf16 where
 # the kernel keeps f32; over 34 layers that stays within a few percent. A
@@ -184,6 +203,15 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6
 # ~102 GB; (RG-LRU, RG-LRU, local) x 4 + the (RG-LRU, RG-LRU) remainder hold
 # 3.81 B, ~38 GB of state, close to gemma3-4b's 38.87 GB
 RG_TRAIN_CUT = {"name": f"{RG_ARCH}-14layer", "num_layers": 14, "sb_repeat": 4}
+# the dense archs train at full width and reduced depth too: at 12 bytes a
+# parameter the full archs need 90.8, 98.1 and 141.2 GB. Each cut keeps the
+# layer pattern and the embedding at about recurrentgemma-9b's 3.81 B: 3.709,
+# 3.788 and 3.696 B parameters
+DENSE_TRAIN_CUTS = {
+    QWEN: {"name": f"{QWEN}-16layer", "num_layers": 16, "sb_repeat": 16},
+    GRANITE: {"name": f"{GRANITE}-18layer", "num_layers": 18, "sb_repeat": 18},
+    G12: {"name": f"{G12}-12layer", "num_layers": 12, "sb_repeat": 2},
+}
 
 
 def fail(msg):
@@ -245,6 +273,57 @@ def attention_bound_ms(q, k, causal, window):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+# K1's shapes in phase 3: (label, arch, layer kind), each (heads, kv heads,
+# head dim, window) timed once under the label of the first arch that has it
+K1_SHAPES = (("global", ARCH, "global"), ("local", ARCH, "local"),
+             (f"{RG_ARCH} local", RG_ARCH, "local"), (f"{QWEN} global", QWEN, "global"),
+             (f"{G12} global", G12, "global"), (f"{G12} local", G12, "local"))
+# the archs whose serving and training run K1, each timed per prefill and per
+# train step from K1_SHAPES
+SERVED_ON_K1 = (ARCH, RG_ARCH) + DENSE_ARCHS
+
+
+def k1_shape(cfg, kind):
+    """(heads, kv heads, head dim, window) of K1 in a layer of `kind`."""
+    return (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.local_window if kind == "local" else 0)
+
+
+def k1_shapes(get_config):
+    """[(label, config, window)] of K1_SHAPES."""
+    out = []
+    for label, arch, kind in K1_SHAPES:
+        cfg = get_config(arch)
+        out.append((label, cfg, k1_shape(cfg, kind)[3]))
+    return out
+
+
+def k1_shape_archs(get_config, cfg, window):
+    """The archs of SERVED_ON_K1 with a layer of this config's K1 shape."""
+    want = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, window)
+    archs = [(a, get_config(a)) for a in SERVED_ON_K1]
+    return [a for a, c in archs if any(k1_shape(c, kind) == want for kind in
+                                       set(c.layer_kinds) & {"global", "local"})]
+
+
+def per_model(get_config, per, archs, cuts=None):
+    """{arch: {launches, ms, plain_ms, library_ms, bound_ms}}: K1's per-launch
+    times in `per` (by K1_SHAPES label) summed over the attention layers of
+    each arch's config (cut as `cuts` says), one launch a layer."""
+    label_of = {}
+    for label, cfg, window in k1_shapes(get_config):
+        label_of.setdefault((cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, window), label)
+    out = {}
+    for arch in archs:
+        cfg = get_config(arch).replace(**(cuts or {}).get(arch, {}))
+        labels = [label_of[k1_shape(cfg, kind)] for kind in cfg.layer_kinds
+                  if kind in ("global", "local")]
+        out[cfg.name] = {"launches": len(labels), **{
+            key: sum(per[x][key] for x in labels)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -274,15 +353,16 @@ def ptxas_usage(text):
     return {name: "; ".join(lines) for name, lines in usage.items()}
 
 
-# the served instance of K1: the bf16 kernel at head dim 256; and the bf16
-# kernels of its backward, an instance per head dim
-K1_SERVED_ENTRY = ("flash_fwd_bf16_kernel", "ILi256E")
+# the served instances of K1: the bf16 kernel at head dims 256 (gemma3,
+# recurrentgemma-9b) and 128 (qwen3-8b, granite-3-8b); and the bf16 kernels
+# of its backward, an instance per head dim
+K1_SERVED_KERNEL, K1_SERVED_HDS = "flash_fwd_bf16_kernel", (256, 128)
 K1_BWD_ENTRIES = ("flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel")
 
 
 def phase_build():
-    """Build every source; returns the ptxas lines of K1's served instance,
-    {"<kernel> hd <hd>": ptxas lines} of its backward's bf16 instances,
+    """Build every source; returns {"hd <hd>": ptxas lines} of K1's served
+    instances, {"<kernel> hd <hd>": ptxas lines} of its backward's bf16 instances,
     {kernel: ptxas lines} of K2's backward at mamba2-780m's widths and
     {kernel: ptxas lines} of K3's backward."""
     from repro_torch.kernels import build
@@ -291,7 +371,7 @@ def phase_build():
         info = build.build_all()
     except RuntimeError as e:
         fail(str(e))
-    served, bwd, ssd_bwd, rglru_bwd = None, {}, {}, {}
+    served, bwd, ssd_bwd, rglru_bwd = {}, {}, {}, {}
     for name, item in info.items():
         usage = ptxas_usage(item["log"])
         log(f"[build] {name}: {item['seconds']:.1f}s nvcc -> {item['path'].name}; "
@@ -318,9 +398,10 @@ def phase_build():
                 if name == "rglru_bwd":
                     rglru_bwd[entry] = lines
         for entry, lines in usage.items():
-            if all(part in entry for part in K1_SERVED_ENTRY):
-                served = lines
-                log(f"[build] flash_attention bf16 hd 256 ({entry}): {lines}")
+            for hd in K1_SERVED_HDS:
+                if f"{K1_SERVED_KERNEL}ILi{hd}E" in entry:
+                    served[f"hd {hd}"] = lines
+                    log(f"[build] flash_attention bf16 hd {hd} ({entry}): {lines}")
             for kernel in K1_BWD_ENTRIES:
                 hd = entry.split(kernel + "ILi")[-1].split("E")[0] if kernel in entry else ""
                 if hd.isdigit():
@@ -378,14 +459,16 @@ def phase_kernels(torch, ptxas_served):
     log(f"[kernels] flash_attention bf16 sweep, {len(FLASH_CASES)} cases (every head dim, "
         f"ragged S, GQA 1/2/16, Sq != Sk, three masks): max err {wide_err:.3g} (tol 3e-2)")
 
-    # the serving shapes, B 4, S 2048, hd 256, bf16: gemma3-4b's (H 8, KV 4)
-    # global layer (causal) and local one (causal, window 1024), and
-    # recurrentgemma-9b's local layer (H 16 over one kv head, window 2048)
+    # the serving shapes, B 4, S 2048, bf16 (K1_SHAPES): gemma3-4b's (H 8, KV
+    # 4, hd 256) global layer (causal) and local one (causal, window 1024),
+    # recurrentgemma-9b's local layer (H 16 over one kv head, window 2048),
+    # qwen3-8b's layer (H 32 over KV 8, hd 128; granite-3-8b's is the same
+    # shape, timed once), gemma3-12b's (H 16 over KV 8, hd 256) global and
+    # local (window 1024) layers
     from repro_torch.configs.registry import get_config
-    cfg, rg = get_config(ARCH), get_config(RG_ARCH)
+    cfg = get_config(ARCH)
     per = {}
-    for label, c, window in (("global", cfg, 0), ("local", cfg, cfg.local_window),
-                             (f"{RG_ARCH} local", rg, rg.local_window)):
+    for label, c, window in k1_shapes(get_config):
         G = c.num_heads // c.num_kv_heads
         q, k, v = inputs(BATCH * c.num_kv_heads, G, PROMPT, c.head_dim,
                          torch.bfloat16)
@@ -413,12 +496,15 @@ def phase_kernels(torch, ptxas_served):
         library_ms = cuda_ms(torch, lib)
         bound_ms, bound_by = attention_bound_ms(q, k, True, window)
         per[label] = {"window": window, "heads": c.num_heads,
-                      "kv_heads": c.num_kv_heads, "max_abs_err": err, "ms": ms,
+                      "kv_heads": c.num_kv_heads, "head_dim": c.head_dim,
+                      "archs": k1_shape_archs(get_config, c, window), "max_abs_err": err, "ms": ms,
                       "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "bound_share": bound_ms / ms, "vs_library": ms / library_ms,
                       "library_vs_kernel_max_abs_diff": lib_err, "sdpa_backend": backend}
-        log(f"[kernels] flash_attention {label} (window {window}): err {err:.3g}, "
+        log(f"[kernels] flash_attention {label} (H {c.num_heads} over KV {c.num_kv_heads}, hd "
+            f"{c.head_dim}, window {window}; the shape of {', '.join(per[label]['archs'])}): "
+            f"err {err:.3g}, "
             f"{ms:.4f} ms (plain {plain_ms:.3f}, SDPA {library_ms:.4f} by {backend}, "
             f"bound {bound_ms:.4f} by {bound_by}); {bound_ms / ms:.1%} of the bound, "
             f"{ms / library_ms:.2f}x SDPA's time")
@@ -426,6 +512,11 @@ def phase_kernels(torch, ptxas_served):
     n_global = sum(kind == "global" for kind in cfg.layer_kinds)
     per_prefill = {key: n_global * per["global"][key] + n_local * per["local"][key]
                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by_arch = per_model(get_config, per, SERVED_ON_K1)
+    for arch, t in by_arch.items():
+        log(f"[kernels] flash_attention per {arch} prefill ({t['launches']} launches): "
+            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f}, plain {t['plain_ms']:.3f}, SDPA "
+            f"{t['library_ms']:.4f}")
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -435,11 +526,13 @@ def phase_kernels(torch, ptxas_served):
         "max_err": max(per[x]["max_abs_err"] for x in per),
         **per_prefill, "bound_by": "+".join(sorted({per[x]["bound_by"] for x in per})),
         "times_are": f"per {ARCH} prefill: {n_global} global + {n_local} local "
-                     f"launches; {RG_ARCH} per launch under per_launch",
+                     "launches; each shape per launch under per_launch, each arch's "
+                     "prefill under per_prefill_by_arch",
         "f32_sweep_max_abs_err": sweep_err["float32"],
         "bf16_sweep_max_abs_err": max(sweep_err["bfloat16"], wide_err),
-        "ptxas_bf16_hd256": ptxas_served,
-        "per_launch": per,
+        "ptxas_bf16_hd256": ptxas_served.get("hd 256"),
+        "ptxas_bf16_hd128": ptxas_served.get("hd 128"),
+        "per_launch": per, "per_prefill_by_arch": by_arch,
     }
 
 
@@ -569,10 +662,9 @@ def phase_kernels_flash_bwd(torch, ptxas_bwd):
         f"err x max(1, max |ref|) bf16 {worst['bfloat16']:.3g} (tol "
         f"{BWD_RTOL['bfloat16']}), f32 {worst['float32']:.3g} (tol {BWD_RTOL['float32']})")
 
-    cfg, rg = get_config(ARCH), get_config(RG_ARCH)
+    cfg = get_config(ARCH)
     per = {}
-    for label, c, window in (("global", cfg, 0), ("local", cfg, cfg.local_window),
-                             (f"{RG_ARCH} local", rg, rg.local_window)):
+    for label, c, window in k1_shapes(get_config):
         G = c.num_heads // c.num_kv_heads
         BKV = TRAIN_BATCH * c.num_kv_heads
         shape = (c.head_dim, BKV, G, TRAIN_SEQ, TRAIN_SEQ)
@@ -585,8 +677,9 @@ def phase_kernels_flash_bwd(torch, ptxas_bwd):
         run = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True,  # noqa: E731
                                           window=window)
         entry = {"window": window, "heads": c.num_heads, "kv_heads": c.num_kv_heads,
+                 "head_dim": c.head_dim, "archs": k1_shape_archs(get_config, c, window),
                  "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "max_rel_err": errs}
-        if label in ("global", f"{RG_ARCH} local"):
+        if label in ("global", f"{RG_ARCH} local", f"{QWEN} global"):
             # no atomics, and the G split's partials are summed in a fixed
             # order (recurrentgemma): every call gives the same bits
             outs = [run() for _ in range(20)]
@@ -618,8 +711,10 @@ def phase_kernels_flash_bwd(torch, ptxas_bwd):
                       "sdpa_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by,
                       "bound_share": bound_ms / ms, "vs_library": ms / library_ms})
         per[label] = entry
-        log(f"[kernels] flash_attention_bwd {label} (B {TRAIN_BATCH}, S {TRAIN_SEQ}, window "
-            f"{window}): err bf16 {errs['bfloat16']:.3g}, f32 {errs['float32']:.3g}; "
+        log(f"[kernels] flash_attention_bwd {label} (B {TRAIN_BATCH}, S {TRAIN_SEQ}, H "
+            f"{c.num_heads} over KV {c.num_kv_heads}, hd {c.head_dim}, window {window}; the "
+            f"shape of {', '.join(entry['archs'])}): err bf16 {errs['bfloat16']:.3g}, f32 "
+            f"{errs['float32']:.3g}; "
             f"{ms:.4f} ms (plain {plain_ms:.3f}, SDPA backward {library_ms:.4f} by "
             f"{backend}, bound {bound_ms:.4f} by {bound_by}); {bound_ms / ms:.1%} of the "
             f"bound, {ms / library_ms:.2f}x SDPA's time")
@@ -628,6 +723,11 @@ def phase_kernels_flash_bwd(torch, ptxas_bwd):
     n_global = sum(kind == "global" for kind in cfg.layer_kinds)
     per_step = {key: n_global * per["global"][key] + n_local * per["local"][key]
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by_arch = per_model(get_config, per, SERVED_ON_K1, {RG_ARCH: RG_TRAIN_CUT, **DENSE_TRAIN_CUTS})
+    for name, t in by_arch.items():
+        log(f"[kernels] flash_attention_bwd per {name} train step ({t['launches']} launches): "
+            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f}, plain {t['plain_ms']:.3f}, SDPA "
+            f"backward {t['library_ms']:.4f}")
     return {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -639,10 +739,11 @@ def phase_kernels_flash_bwd(torch, ptxas_bwd):
         "max_err_is": "relative to max(1, max |ref|) per tensor",
         **per_step, "bound_by": "+".join(sorted({per[x]["bound_by"] for x in per})),
         "times_are": f"per {ARCH} train step (B {TRAIN_BATCH}, S {TRAIN_SEQ}): "
-                     f"{n_global} global + {n_local} local launches; {RG_ARCH} per "
-                     "launch under per_launch",
+                     f"{n_global} global + {n_local} local launches; each shape per "
+                     "launch under per_launch, each trained config's step under "
+                     "per_step_by_config",
         "sweep_max_rel_err": worst, "ptxas_bf16": ptxas_bwd,
-        "per_launch": per,
+        "per_launch": per, "per_step_by_config": by_arch,
     }
 
 
@@ -1529,11 +1630,13 @@ def _rglru_gate_leaf(k):
 
 
 # each trained arch: by layer kind, the kernels (forward, backward) a layer of
-# that kind launches once each; the training config's cut, if any; for the
-# gradient check its two-layer cut (superblock, repeats), the leaves whose
-# gradient reaches the loss only through those kernels, if any a refill
-# (label, the leaves to fill, the value) after which those leaves are checked
-# again, and if any a longer FD step by direction
+# that kind launches once each; the training config's cut, if any; for an
+# arch with a gradient check its two-layer cut (superblock, repeats), the
+# leaves whose gradient reaches the loss only through those kernels, if any a
+# refill (label, the leaves to fill, the value) after which those leaves are
+# checked again, and if any a longer FD step by direction. granite-3-8b and
+# gemma3-12b repeat K1 shapes that qwen3-8b's and gemma3-4b's checks cover
+# (hd 128 over GQA 4; hd 256, windowed and global), so they have none
 _K1 = ("flash_attention", "flash_attention_bwd")
 TRAINED = {
     ARCH: {"kernels": {"local": _K1, "global": _K1},
@@ -1556,6 +1659,11 @@ TRAINED = {
               # steps eps and eps / 2 of FD_STEP fell 0.8% either side of it
               # (rounding, not curvature); the loss is near linear along it
               "fd_steps": {"gate leaves": 16 * FD_STEP, "gate leaves, lam = -7": 4 * FD_STEP}},
+    QWEN: {"kernels": {"global": _K1}, "train_cut": DENSE_TRAIN_CUTS[QWEN],
+           "superblock": ("global",), "sb_repeat": 2,
+           "leaves": ("attention leaves", lambda k: ".attn." in k)},
+    GRANITE: {"kernels": {"global": _K1}, "train_cut": DENSE_TRAIN_CUTS[GRANITE]},
+    G12: {"kernels": {"local": _K1, "global": _K1}, "train_cut": DENSE_TRAIN_CUTS[G12]},
 }
 
 
@@ -1574,7 +1682,8 @@ def _launches_per_step(cfg, arch, counters, remat):
 
 def phase_grad_check(torch, arch):
     """Full-width, two-layer `arch` (gemma3-4b: one local, one global layer;
-    mamba2-780m and recurrentgemma-9b: two layers of their recurrent block;
+    qwen3-8b: two global layers; mamba2-780m and recurrentgemma-9b: two
+    layers of their recurrent block;
     B 1, S 2048, so gemma's window is live, mamba2 runs 8 chunks and the
     RG-LRU scan 32) in f32: the gradient from the arch's kernel's forward and
     backward against a central finite difference of the loss along random
@@ -1828,17 +1937,28 @@ def main(argv=None):
     ssm_train = timed(f"train {SSM_ARCH}", phase_train, torch, card, SSM_ARCH)
     rg_grad = timed(f"grad {RG_ARCH}", phase_grad_check, torch, RG_ARCH)
     rg_train = timed(f"train {RG_ARCH}", phase_train, torch, card, RG_ARCH)
+    # the other dense archs on K1 alone: 36, 40 and 48 launches a prefill
+    for arch in DENSE_ARCHS:
+        by_arch[arch] = timed(f"serve {arch}", phase_serve, torch, arch, {
+            "flash_attention": count(arch, "global", "local")})
+        torch.cuda.empty_cache()
+    qwen_grad = timed(f"grad {QWEN}", phase_grad_check, torch, QWEN)
+    dense_train = {arch: timed(f"train {arch}", phase_train, torch, card, arch)
+                   for arch in DENSE_ARCHS}
     flash["launches_by_path"] = {f"serve {a}": n["flash_attention"] for a, n in by_arch.items()
                                  if n["flash_attention"]}
-    flash["launches_by_path"][f"train {ARCH}"] = train["launches"]["flash_attention"]
-    flash["launches_by_path"][f"train {RG_ARCH}"] = rg_train["launches"]["flash_attention"]
+    trained_on_k1 = {ARCH: train, RG_ARCH: rg_train, **dense_train}
+    for a, t in trained_on_k1.items():
+        flash["launches_by_path"][f"train {a}"] = t["launches"]["flash_attention"]
     flash["launches"] = sum(flash["launches_by_path"].values())
-    flash_bwd["launches_by_path"] = {
-        f"train {ARCH}": train["launches"]["flash_attention_bwd"],
-        f"train {RG_ARCH}": rg_train["launches"]["flash_attention_bwd"]}
+    flash_bwd["launches_by_path"] = {f"train {a}": t["launches"]["flash_attention_bwd"]
+                                     for a, t in trained_on_k1.items()}
     flash_bwd["launches"] = sum(flash_bwd["launches_by_path"].values())
     flash_bwd["grad_check"] = grad
+    flash_bwd[f"grad_check {QWEN}"] = qwen_grad
     flash_bwd["train"] = {k: v for k, v in train.items() if k != "launches"}
+    flash_bwd["train_by_arch"] = {a: {k: v for k, v in t.items() if k != "launches"}
+                                  for a, t in dense_train.items()}
     ssd["launches_by_path"] = {f"serve {SSM_ARCH}": by_arch[SSM_ARCH]["ssd"],
                                f"train {SSM_ARCH}": ssm_train["launches"]["ssd"]}
     ssd["launches"] = sum(ssd["launches_by_path"].values())

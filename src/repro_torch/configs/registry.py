@@ -1,13 +1,17 @@
 """Architecture registry: --arch <id> -> ModelConfig (ported archs only)."""
 from __future__ import annotations
 
-from repro_torch.configs import gemma3_4b, mamba2_780m, recurrentgemma_9b
+from repro_torch.configs import (gemma3_4b, gemma3_12b, granite_3_8b, mamba2_780m,
+                                 qwen3_8b, recurrentgemma_9b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "gemma3-4b": gemma3_4b,
     "mamba2-780m": mamba2_780m,
     "recurrentgemma-9b": recurrentgemma_9b,
+    "qwen3-8b": qwen3_8b,
+    "granite-3-8b": granite_3_8b,
+    "gemma3-12b": gemma3_12b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

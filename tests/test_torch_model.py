@@ -226,10 +226,11 @@ def test_unported_layers_raise(change):
 
 
 def test_registry_lists_ported_archs():
-    for arch in ("gemma3-4b", "mamba2-780m", "recurrentgemma-9b"):
+    for arch in ("gemma3-4b", "mamba2-780m", "recurrentgemma-9b", "qwen3-8b",
+                 "granite-3-8b", "gemma3-12b"):
         assert get_config(arch).param_count() == jax_config(arch).param_count()
     with pytest.raises(KeyError, match="gemma3-4b"):
-        get_config("qwen3-8b")
+        get_config("mixtral-8x7b")
 
 
 @pytest.mark.parametrize("smoke", [False, True])
