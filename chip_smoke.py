@@ -16,11 +16,13 @@ a kernel's plain version:
              its share of the bound and its ratio to SDPA: gemma3-4b's global
              and local layers, recurrentgemma-9b's local layer, qwen3-8b's
              layer (H 32 over KV 8, hd 128; granite-3-8b's is the same shape,
-             timed once) and gemma3-12b's global and local layers (H 16 over
-             KV 8, hd 256, window 1024), and K1's time per prefill of each
-             arch; a bf16 sweep over
-             every head dim, S of 1, 80, 200, 328, 2049 and 3000, GQA 1, 2
-             and 16, Sq != Sk and causal, windowed and non-causal masks
+             timed once), gemma3-12b's global and local layers (H 16 over
+             KV 8, hd 256, window 1024), dbrx-132b's layer (H 48 over KV 8,
+             hd 128) and mixtral-8x7b's (H 32 over KV 8, hd 128, window
+             4096), and K1's time per prefill of each arch (the MoE archs at
+             their serving cuts); a bf16 sweep over
+             every head dim, S of 1, 80, 200, 328, 2049 and 3000, GQA 1, 2,
+             6 and 16, Sq != Sk and causal, windowed and non-causal masks
              (3e-2);
              and the f32 sweep of tests/test_kernels.py (2e-5); with the
              optional lse: o bit-equal with and without it, lse against the
@@ -30,10 +32,13 @@ a kernel's plain version:
              the training shapes at B 2 (gemma3-4b global and window 1024,
              recurrentgemma-9b's local layer, where the dK/dV kernel splits
              the 16 query heads, qwen3-8b's layer, gemma3-12b's global and
-             local layers), against the plain backward (relative to
+             local layers, dbrx-132b's and mixtral-8x7b's layers), against
+             the plain backward (relative to
              max(1, max |ref|): f32 1e-4, bf16 2e-2 against the bf16 inputs
              upcast to f32); 20 calls bit-equal at gemma global, at
-             recurrentgemma local and at qwen3-8b's shape; its time beside
+             recurrentgemma local, at qwen3-8b's shape, at dbrx-132b's and
+             at the sweep's GQA 6 case (bf16, its heads split); its time
+             beside
              the bound, the plain
              backward and SDPA's backward (its backend recorded, as for the
              forward's SDPA yardstick); each bf16 backward kernel's ptxas
@@ -86,8 +91,16 @@ a kernel's plain version:
              the window mask and wrap the ring): 26 rglru_scan and 12
              flash_attention launches per prefill; qwen3-8b, granite-3-8b
              and gemma3-12b (window 1024, ring live): 36, 40 and 48
-             flash_attention launches per prefill; none in decode; no
-             backward launch
+             flash_attention launches per prefill; mixtral-8x7b at 20 layers
+             and dbrx-132b at 8 (MOE_SERVE_CUTS; the reference's capacity
+             factor 1.25): 20 and 8 per prefill, the share of prefill
+             assignments each MoE layer drops and the residual stream's max
+             |h| printed, the bf16 decode check printed with where decode,
+             the prefill and the full forward routed differently (per row:
+             choices and drops at the checked and earlier decode tokens,
+             prompt assignments), the rows routed the same everywhere held
+             to the dense archs' rule, and decode gated on a drop-free f32
+             replay (F32_REPLAY); none in decode; no backward launch
   5. grad    a full-width two-layer gemma3-4b (one local, one global layer,
              B 1, S 2048) in f32: the gradient from K1's forward and backward
              against a Richardson-extrapolated central difference of the
@@ -103,7 +116,11 @@ a kernel's plain version:
              leaves once more with lam filled to -7, so that a lies in
              (0.993, 1) and the carry between chunks is live; and for a
              full-width two-layer qwen3-8b (two global layers: K1 at hd 128
-             over GQA 4) over every leaf and over the attention leaves
+             over GQA 4) over every leaf and over the attention leaves; and
+             for a full-width two-layer mixtral-8x7b over every leaf and over
+             its MoE leaves (router, wi, wg, wo), each evaluation routed
+             with the unperturbed forward's expert ids and slots (the
+             branch autograd differentiates; MOE_FD_STEP)
   6. train   gemma3-4b at full width and depth, B 2 x S 2048 from the
              port's data, remat full, 6 AdamW steps: finite losses and
              gnorms, per step exactly the K1 forwards (34 + 30 recomputed)
@@ -118,13 +135,18 @@ a kernel's plain version:
              backwards a step, no other kernel; then qwen3-8b at 16 layers
              (32 K1 forwards, 16 backwards a step), granite-3-8b at 18 (36,
              18) and gemma3-12b at 12, two repeats of (5 local + 1 global)
-             (24, 12), each at full width (DENSE_TRAIN_CUTS); for each, step
-             time, tokens/s, peak memory and a profiler window of one step
+             (24, 12), each at full width (DENSE_TRAIN_CUTS); then
+             mixtral-8x7b at 2 layers (4 K1 forwards, 2 backwards a step)
+             and dbrx-132b at 1 (2, 1), each at full width
+             (MOE_TRAIN_CUTS), with the MoE aux loss of each step; for each,
+             step time, tokens/s, peak memory and a profiler window of one
+             step
 Prints the kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -150,6 +172,12 @@ RG_ARCH = "recurrentgemma-9b"
 # 256, 5 local with window 1024 : 1 global)
 QWEN, GRANITE, G12 = "qwen3-8b", "granite-3-8b", "gemma3-12b"
 DENSE_ARCHS = (QWEN, GRANITE, G12)
+# the MoE archs: mixtral-8x7b (8 experts top-2; 32 q heads over 8 kv heads,
+# hd 128, every layer local with window 4096) and dbrx-132b (16 experts
+# top-4; 48 q heads over 8 kv heads, hd 128, every layer global). The
+# expert products are einsums (bmm over the experts); K1 is their kernel
+MIXTRAL, DBRX = "mixtral-8x7b", "dbrx-132b"
+MOE_ARCHS = (MIXTRAL, DBRX)
 # decode vs full forward, relative to the largest logit: bf16 rounds every
 # layer's output (2^-9 relative) and decode rounds its scores to bf16 where
 # the kernel keeps f32; over 34 layers that stays within a few percent. A
@@ -169,13 +197,31 @@ DECODE_RTOL = 0.1
 # same two replays before it fails that rule, so a failure shows whether
 # rounding or a defect moved it. The replays keep every decode cache (the
 # conv histories and the attention k/v) in the dtype they are given.
-F32_REPLAY = {SSM_ARCH}
+#
+# The MoE archs are held on the same f32 replay, for another reason too:
+# their prefill routes 8,192 tokens into C = 2,560 slots an expert (the
+# reference's capacity factor 1.25) and drops the assignments past it,
+# while decode routes 4 tokens into 8 slots and never drops, so at cf 1.25
+# the forward and decode compute different functions by design; and even
+# where nothing drops, rounding flips expert choices, which moves a logit
+# by an expert's output. Their replay runs a cut of the served config
+# (MOE_REPLAY_CUTS) at capacity factor E/k, where C >= the tokens routed, so
+# that nothing drops in the forward either: decode and the forward then
+# compute one function, and the replay compares it with itself. The served
+# bf16 check prints, for each checked row, where decode (with the prefill
+# that filled its cache) and the forward routed differently; a row that
+# they routed the same at every token computes one function in both, and
+# is held to DECODE_RTOL like a dense arch.
+F32_REPLAY = {SSM_ARCH, MIXTRAL, DBRX}
 F32_DECODE_RTOL = 1e-3
 
 
+# GQA 6 (dbrx-132b's 48 q heads over 8 kv heads), ragged S, where the
+# backward splits the 6 heads of a kv tile in 3 (bwd_head_splits)
+GQA6_CASE = (128, 2, 6, 3000, 3000, True, 0)
 # the forward's bf16 sweep (hd, BKV, G, Sq, Sk, causal, window): every head
 # dim (swizzle 32, 64 and 128 B; 1, 2 and 4 boxes a row), S ragged against
-# both the 64-key and the 128-row tiles, GQA 1, 2 and 16, Sq != Sk both ways,
+# both the 64-key and the 128-row tiles, GQA 1, 2, 6 and 16, Sq != Sk both ways,
 # and causal, windowed and non-causal masks
 FLASH_CASES = []
 for _hd in (16, 32, 64, 128, 256):
@@ -185,7 +231,7 @@ FLASH_CASES += [(256, 2, 2, 200, 328, False, 0), (128, 2, 2, 328, 200, True, 150
                 (64, 2, 2, 80, 200, True, 0), (32, 2, 2, 200, 200, False, 64),
                 (256, 1, 16, 2049, 2049, False, 0),
                 # one row and one key; one row over many keys
-                (16, 1, 1, 1, 1, True, 0), (256, 2, 2, 1, 3000, False, 0)]
+                (16, 1, 1, 1, 1, True, 0), (256, 2, 2, 1, 3000, False, 0), GQA6_CASE]
 
 # K1's backward against the plain backward, relative to max(1, max |ref|) per
 # tensor: f32 against the plain backward in f32 (summation order; the
@@ -212,6 +258,38 @@ DENSE_TRAIN_CUTS = {
     GRANITE: {"name": f"{GRANITE}-18layer", "num_layers": 18, "sb_repeat": 18},
     G12: {"name": f"{G12}-12layer", "num_layers": 12, "sb_repeat": 2},
 }
+# the MoE archs serve at full width and reduced depth: their bf16 weights
+# are 93.4 and 263.2 GB at full depth. 20 mixtral layers hold 29.29 B
+# parameters (58.6 GB), 8 dbrx layers 27.31 B (54.6 GB), with room for the
+# cache and a prefill's expert transients ((E, C, F) bf16 of 0.59 and 0.88
+# GB at C 2,560)
+MOE_SERVE_CUTS = {
+    MIXTRAL: {"name": f"{MIXTRAL}-20layer", "num_layers": 20, "sb_repeat": 20},
+    DBRX: {"name": f"{DBRX}-8layer", "num_layers": 8, "sb_repeat": 8},
+}
+# and train at 2 and 1 layers: 3.165 B (38.0 GB of state at 12 bytes a
+# parameter) and 4.492 B (53.9 GB; dbrx's untied 100,352-token embedding
+# and unembedding alone are 1.233 B)
+MOE_TRAIN_CUTS = {
+    MIXTRAL: {"name": f"{MIXTRAL}-2layer", "num_layers": 2, "sb_repeat": 2},
+    DBRX: {"name": f"{DBRX}-1layer", "num_layers": 1, "sb_repeat": 1},
+}
+# the f32 replay's depth (F32_REPLAY): 4 mixtral layers are 24.3 GB of f32
+# weights, 2 dbrx layers 31.0 GB, beside ~15 and ~23 GB of (E, C, F) f32
+# transients at capacity factor E/k (C = 8,200 for 8,196 tokens)
+MOE_REPLAY_CUTS = {
+    MIXTRAL: {"name": f"{MIXTRAL}-4layer", "num_layers": 4, "sb_repeat": 4},
+    DBRX: {"name": f"{DBRX}-2layer", "num_layers": 2, "sb_repeat": 2},
+}
+
+
+def replay_config(arch, cfg):
+    """The config of `arch`'s f32 replay: the served config, or for a MoE
+    arch its MOE_REPLAY_CUTS cut at capacity factor E/k (nothing drops)."""
+    if arch not in MOE_REPLAY_CUTS:
+        return cfg
+    return cfg.replace(**MOE_REPLAY_CUTS[arch],
+                       capacity_factor=cfg.num_experts / cfg.experts_per_token)
 
 
 def fail(msg):
@@ -277,10 +355,11 @@ def attention_bound_ms(q, k, causal, window):
 # head dim, window) timed once under the label of the first arch that has it
 K1_SHAPES = (("global", ARCH, "global"), ("local", ARCH, "local"),
              (f"{RG_ARCH} local", RG_ARCH, "local"), (f"{QWEN} global", QWEN, "global"),
-             (f"{G12} global", G12, "global"), (f"{G12} local", G12, "local"))
+             (f"{G12} global", G12, "global"), (f"{G12} local", G12, "local"),
+             (f"{DBRX} global", DBRX, "global"), (f"{MIXTRAL} local", MIXTRAL, "local"))
 # the archs whose serving and training run K1, each timed per prefill and per
 # train step from K1_SHAPES
-SERVED_ON_K1 = (ARCH, RG_ARCH) + DENSE_ARCHS
+SERVED_ON_K1 = (ARCH, RG_ARCH) + DENSE_ARCHS + MOE_ARCHS
 
 
 def k1_shape(cfg, kind):
@@ -457,7 +536,7 @@ def phase_kernels(torch, ptxas_served):
                     f"bf16 hd{hd} kv{BKV} G{G} Sq{Sq} Sk{Sk} causal={causal} window={window}")
         wide_err = max(wide_err, err)
     log(f"[kernels] flash_attention bf16 sweep, {len(FLASH_CASES)} cases (every head dim, "
-        f"ragged S, GQA 1/2/16, Sq != Sk, three masks): max err {wide_err:.3g} (tol 3e-2)")
+        f"ragged S, GQA 1/2/6/16, Sq != Sk, three masks): max err {wide_err:.3g} (tol 3e-2)")
 
     # the serving shapes, B 4, S 2048, bf16 (K1_SHAPES): gemma3-4b's (H 8, KV
     # 4, hd 256) global layer (causal) and local one (causal, window 1024),
@@ -512,7 +591,7 @@ def phase_kernels(torch, ptxas_served):
     n_global = sum(kind == "global" for kind in cfg.layer_kinds)
     per_prefill = {key: n_global * per["global"][key] + n_local * per["local"][key]
                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    by_arch = per_model(get_config, per, SERVED_ON_K1)
+    by_arch = per_model(get_config, per, SERVED_ON_K1, MOE_SERVE_CUTS)
     for arch, t in by_arch.items():
         log(f"[kernels] flash_attention per {arch} prefill ({t['launches']} launches): "
             f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f}, plain {t['plain_ms']:.3f}, SDPA "
@@ -621,7 +700,8 @@ def phase_kernels_flash_bwd(torch, ptxas_bwd):
     import torch.nn.functional as F
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.flash_attention import (bwd_head_splits, flash_attention_bwd,
+                                                     flash_attention_fwd)
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
 
@@ -661,6 +741,23 @@ def phase_kernels_flash_bwd(torch, ptxas_bwd):
     log(f"[kernels] flash_attention_bwd sweep, {len(FLASH_CASES)} cases x (bf16, f32): max "
         f"err x max(1, max |ref|) bf16 {worst['bfloat16']:.3g} (tol "
         f"{BWD_RTOL['bfloat16']}), f32 {worst['float32']:.3g} (tol {BWD_RTOL['float32']})")
+    # the GQA 6 case in bf16: its 6 heads a kv tile split over blocks whose
+    # f32 partials a second kernel sums in split order, so 20 calls give the
+    # same bits
+    hd, BKV, G, Sq, Sk, causal, window = GQA6_CASE
+    splits = bwd_head_splits(BKV, G, Sk)
+    if splits == 1:
+        fail("flash_attention_bwd GQA 6 case: bwd_head_splits gives 1, no split to check")
+    q, k, v, do = inputs(hd, BKV, G, Sq, Sk, torch.bfloat16)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+    outs = [flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+            for _ in range(20)]
+    torch.cuda.synchronize()
+    if not all(all(torch.equal(a, b) for a, b in zip(x, outs[0])) for x in outs):
+        fail("flash_attention_bwd: 20 back-to-back calls at the GQA 6 case differ")
+    del q, k, v, do, o, lse, outs
+    log(f"[kernels] flash_attention_bwd GQA 6 case (hd {hd}, KV {BKV}, G {G}, S {Sq}, bf16; "
+        f"{splits} blocks share a kv tile's heads): 20 back-to-back calls bit-equal")
 
     cfg = get_config(ARCH)
     per = {}
@@ -679,9 +776,10 @@ def phase_kernels_flash_bwd(torch, ptxas_bwd):
         entry = {"window": window, "heads": c.num_heads, "kv_heads": c.num_kv_heads,
                  "head_dim": c.head_dim, "archs": k1_shape_archs(get_config, c, window),
                  "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "max_rel_err": errs}
-        if label in ("global", f"{RG_ARCH} local", f"{QWEN} global"):
+        if label in ("global", f"{RG_ARCH} local", f"{QWEN} global", f"{DBRX} global"):
             # no atomics, and the G split's partials are summed in a fixed
-            # order (recurrentgemma): every call gives the same bits
+            # order (recurrentgemma; dbrx, where the split is a divisor of
+            # 6): every call gives the same bits
             outs = [run() for _ in range(20)]
             torch.cuda.synchronize()
             if not all(all(torch.equal(a, b) for a, b in zip(x, outs[0])) for x in outs):
@@ -723,7 +821,8 @@ def phase_kernels_flash_bwd(torch, ptxas_bwd):
     n_global = sum(kind == "global" for kind in cfg.layer_kinds)
     per_step = {key: n_global * per["global"][key] + n_local * per["local"][key]
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    by_arch = per_model(get_config, per, SERVED_ON_K1, {RG_ARCH: RG_TRAIN_CUT, **DENSE_TRAIN_CUTS})
+    by_arch = per_model(get_config, per, SERVED_ON_K1,
+                        {RG_ARCH: RG_TRAIN_CUT, **DENSE_TRAIN_CUTS, **MOE_TRAIN_CUTS})
     for name, t in by_arch.items():
         log(f"[kernels] flash_attention_bwd per {name} train step ({t['launches']} launches): "
             f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f}, plain {t['plain_ms']:.3f}, SDPA "
@@ -1351,9 +1450,40 @@ def _launch_counters():
             "rglru_scan_bwd": rglru_scan_bwd}
 
 
+@contextlib.contextmanager
+def recorded_layers(resid=True):
+    """While active, record every routing the MoE layers compute
+    (``moe.route``'s result: top-k ids, kept assignments, ...) and, with
+    `resid`, as a device scalar, the max |h| of the residual stream after
+    each layer of a full-sequence forward (``model.apply_layer``). Yields
+    (routings, max |h| list)."""
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe
+    routes, tops = [], []
+    route, apply_layer = moe.route, model_mod.apply_layer
+
+    def route_rec(*a):
+        routes.append(route(*a))
+        return routes[-1]
+
+    def layer_rec(*a, **kw):
+        out = apply_layer(*a, **kw)
+        tops.append(out[0].detach().abs().amax())
+        return out
+
+    moe.route = route_rec
+    if resid:
+        model_mod.apply_layer = layer_rec
+    try:
+        yield routes, tops
+    finally:
+        moe.route, model_mod.apply_layer = route, apply_layer
+
+
 def phase_serve(torch, arch, per_prefill):
-    """Serve `arch`; `per_prefill` names each kernel's launches in one
-    prefill (every other kernel must not launch). Returns the launches."""
+    """Serve `arch` (cut as MOE_SERVE_CUTS says); `per_prefill` names each
+    kernel's launches in one prefill (every other kernel must not launch).
+    Returns the launches."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import Model
     from repro_torch.train.serve_step import (make_decode_step,
@@ -1361,7 +1491,7 @@ def phase_serve(torch, arch, per_prefill):
 
     counters = _launch_counters()
     want = {name: per_prefill.get(name, 0) for name in counters}
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(**MOE_SERVE_CUTS.get(arch, {}))
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()         # left by earlier phases
     t0 = time.perf_counter()
@@ -1378,33 +1508,41 @@ def phase_serve(torch, arch, per_prefill):
     decode = make_decode_step(model)
 
     def run():
-        """prefill + STEPS greedy decode steps; returns timings and logits."""
+        """prefill + STEPS greedy decode steps; returns timings, logits and
+        the MoE routings of the prefill and of each decode step."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = prefill(prompt)
+        with recorded_layers(resid=False) as (pre_routes, _):
+            logits, cache = prefill(prompt)
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
         finite = torch.isfinite(logits).all()
         tok = sample_token(logits)
-        toks, dec_logits = [tok], []
+        toks, dec_logits, dec_routes = [tok], [], []
         t0 = time.perf_counter()
         for _ in range(STEPS):
-            logits, cache = decode(tok, cache)
+            with recorded_layers(resid=False) as (routes, _):
+                logits, cache = decode(tok, cache)
+            dec_routes.append(routes)
             finite &= torch.isfinite(logits).all()
             dec_logits.append(logits)
             tok = sample_token(logits)
             toks.append(tok)
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
-        return t_prefill, t_decode, launches, bool(finite), toks, dec_logits
+        return (t_prefill, t_decode, launches, bool(finite), toks, dec_logits,
+                (pre_routes, dec_routes))
 
     with torch.inference_mode():
-        run()                                       # warm-up: libraries, allocator
+        with recorded_layers() as (routes, resid):  # warm-up: libraries, allocator
+            run()
+        log_moe_prefill(torch, cfg, routes[:cfg.num_layers], resid)
+        del routes, resid
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():                # the main path's run starts here
             fn.launches = 0
-        t_prefill, t_decode, launches, finite, toks, dec_logits = run()
+        t_prefill, t_decode, launches, finite, toks, dec_logits, served_routes = run()
         total_launches = {name: fn.launches for name, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated()
 
@@ -1416,13 +1554,25 @@ def phase_serve(torch, arch, per_prefill):
         if not finite:
             fail(f"{arch}: non-finite logits in prefill or decode")
         # decode logits at positions 2048 and 2048+STEPS-1 against a full
-        # forward over all tokens up to them (last-position logits of prefill)
+        # forward over all tokens up to them (last-position logits of
+        # prefill); for MoE, with where the two routed differently
         seq = torch.cat([prompt] + toks, dim=1)
-        checks = decode_vs_forward(model, seq, dec_logits)
-    bf16_ok = all(err <= DECODE_RTOL * scale for err, scale in checks.values())
+        checks = decode_vs_forward(model, seq, dec_logits, *served_routes)
+    bf16_ok = all(err <= DECODE_RTOL * scale for err, scale, *_ in checks.values())
     gated = arch not in F32_REPLAY
     log(f"[serve] {arch} bf16 decode vs full forward"
         + ("" if gated else " (not gated, see F32_REPLAY)") + ": " + _fmt_checks(checks))
+    same = same_routing_rows(checks)
+    for pos, b, err, scale in same:
+        if not err <= DECODE_RTOL * scale:
+            fail(f"{arch}: bf16 decode at position {pos}, row {b}, routed as the full "
+                 f"forward routes it at every token: max abs err {err:.4g} > {DECODE_RTOL} "
+                 f"x max |logit| {scale:.4g}")
+    if same:
+        log(f"[serve] {arch} bf16 decode, the {len(same)} of {BATCH * len(checks)} checked "
+            f"rows routed as the forward routes them at every token: max abs err "
+            f"{max(e / s for _, _, e, s in same):.4g} x max |logit| (within {DECODE_RTOL}: "
+            "held)")
     tok_s = BATCH * STEPS / t_decode
     log(f"[serve] {arch} prefill {BATCH}x{PROMPT}: {t_prefill * 1e3:.2f} ms "
         f"({BATCH * PROMPT / t_prefill:.0f} tok/s); decode {STEPS} steps: "
@@ -1438,39 +1588,118 @@ def phase_serve(torch, arch, per_prefill):
     if not (gated and bf16_ok):
         del model, prefill, decode             # room for an f32 copy of the weights
         torch.cuda.empty_cache()
+        rcfg = replay_config(arch, cfg)
+        what = "" if rcfg is cfg else (f" ({rcfg.name}, capacity factor "
+                                       f"{rcfg.capacity_factor:g}: nothing drops)")
         with torch.inference_mode():
-            replay = f32_replay(torch, cfg, seq, toks, torch.bfloat16)
-            log(f"[serve] {arch} f32 weights, bf16 caches: decode vs full forward "
+            replay = f32_replay(torch, rcfg, seq, toks, torch.bfloat16)
+            log(f"[serve] {arch} f32 weights{what}, bf16 caches: decode vs full forward "
                 "(not gated): " + _fmt_checks(replay))
-            replay = f32_replay(torch, cfg, seq, toks, torch.float32)
-        log(f"[serve] {arch} f32 weights, f32 caches: decode vs full forward"
+            replay = f32_replay(torch, rcfg, seq, toks, torch.float32)
+        log(f"[serve] {arch} f32 weights{what}, f32 caches: decode vs full forward"
             + (" (not gated)" if gated else "") + ": " + _fmt_checks(replay))
         if not gated:
             checks, rtol, label = replay, F32_DECODE_RTOL, "f32 weights, f32 caches: "
-    for pos, (err, scale) in checks.items():
+    for pos, (err, scale, *_) in checks.items():
         if not err <= rtol * scale:
             fail(f"{arch}: {label}decode at position {pos} vs full forward: max "
                  f"abs err {err:.4g} > {rtol} x max |logit| {scale:.4g}")
     return launches
 
 
-def decode_vs_forward(model, seq, dec_logits):
-    """{position: (max abs err, max |logit|)} of the decode logits at
-    positions PROMPT and PROMPT+STEPS-1 against a full forward of `model`
-    over seq up to them."""
+def log_moe_prefill(torch, cfg, routes, resid):
+    """Print the share of assignments each MoE layer of a prefill dropped
+    (min, median, max over the layers) and the residual stream's max |h|
+    (over the layers, and its largest layer), from recorded_layers."""
+    if not resid:
+        return
+    tops = [x.item() for x in resid]
+    line = (f"[serve] {cfg.name} prefill: residual stream max |h| {max(tops):.4g} "
+            f"(after layer {tops.index(max(tops))}; after the first {tops[0]:.4g})")
+    if routes:
+        drops = [1.0 - r.keep.float().mean().item() for r in routes]
+        line += (f"; assignments dropped per layer at capacity factor "
+                 f"{cfg.capacity_factor:g}: min {min(drops):.2%}, median "
+                 f"{statistics.median(drops):.2%}, max {max(drops):.2%} over "
+                 f"{len(drops)} layers")
+    log(line)
+
+
+def _not_chosen(a, b):
+    """Per row, the choices of a (rows, ..., K) that b (same shape) does not
+    make at the same token."""
+    miss = (a[..., :, None] != b[..., None, :]).all(-1)
+    return miss.reshape(miss.shape[0], -1).sum(-1)
+
+
+ROUTING_KEYS = ("flips", "dropped", "earlier", "prompt_kept", "prompt_chosen")
+
+
+def _routing_diffs(dec, full, pre, n, row_err):
+    """Where decode and a full forward over n tokens routed differently,
+    summed over the MoE layers, per row: the expert choices of decode at
+    the checked token (the last, decode step n - 1 - PROMPT) that the
+    forward did not make there; the forward's assignments at that token
+    that it dropped (decode never drops); the choices and drops that differ
+    at the decode tokens before it; and, against the served prefill's
+    routings `pre`, the prompt assignments that the two kept differently or
+    chose differently (the decode cache holds the prefill's k/v, the
+    forward recomputes them). `dec` holds each decode step's routings up to
+    the checked token's."""
+    B, K = dec[0][0].top_i.shape[1], dec[0][0].top_i.shape[2]
+    rows = {key: full[0].top_i.new_zeros(B) for key in ROUTING_KEYS}
+    for layer, (f, p) in enumerate(zip(full, pre)):
+        f_i, f_keep = f.top_i.reshape(B, n, K), f.keep.reshape(B, n, K)
+        p_i, p_keep = p.top_i.reshape(B, PROMPT, K), p.keep.reshape(B, PROMPT, K)
+        for j, step in enumerate(dec):
+            at = PROMPT + j
+            diff = (_not_chosen(step[layer].top_i.reshape(B, 1, K), f_i[:, at:at + 1]),
+                    (~f_keep[:, at]).sum(-1))
+            if at == n - 1:
+                rows["flips"] += diff[0]
+                rows["dropped"] += diff[1]
+            else:
+                rows["earlier"] += diff[0] + diff[1]
+        rows["prompt_kept"] += (p_keep != f_keep[:, :PROMPT]).reshape(B, -1).sum(-1)
+        rows["prompt_chosen"] += _not_chosen(p_i, f_i[:, :PROMPT])
+    info = {key: v.tolist() for key, v in rows.items()}
+    info.update(row_err=row_err.tolist(), layers=len(full), k=K)
+    return info
+
+
+def same_routing_rows(checks):
+    """[(position, row, err, max |logit|)] of the checked rows that decode
+    and the forward routed the same at every token (no key of
+    _routing_diffs counts anything for the row)."""
+    return [(pos, b, r["row_err"][b], scale) for pos, (_, scale, *info) in checks.items()
+            for r in info for b in range(len(r["row_err"]))
+            if not any(r[key][b] for key in ROUTING_KEYS)]
+
+
+def decode_vs_forward(model, seq, dec_logits, pre_routes=None, dec_routes=None):
+    """{position: (max abs err, max |logit|[, routing info])} of the decode
+    logits at positions PROMPT and PROMPT+STEPS-1 against a full forward of
+    `model` over seq up to them; with the MoE routings of the prefill and
+    of each decode step, also _routing_diffs' counts and each row's max abs
+    err."""
     checks = {}
     for step in (0, STEPS - 1):
         n = PROMPT + step + 1
-        full, _ = model.prefill(seq[:, :n], n)
-        checks[n - 1] = ((dec_logits[step] - full).abs().max().item(),
-                         full.abs().max().item())
+        with recorded_layers(resid=False) as (full_routes, _):
+            full, _ = model.prefill(seq[:, :n], n)
+        err = (dec_logits[step] - full).abs().amax(-1)
+        checks[n - 1] = (err.max().item(), full.abs().max().item())
+        if dec_routes and dec_routes[step]:
+            checks[n - 1] += (_routing_diffs(dec_routes[:step + 1], full_routes, pre_routes,
+                                             n, err),)
     return checks
 
 
 def f32_replay(torch, cfg, seq, toks, cache_dtype):
-    """decode_vs_forward on an f32 copy of the served weights, fed the served
-    run's tokens, with every decode cache (the SSD and RG-LRU conv histories,
-    the attention k/v) kept in `cache_dtype`."""
+    """decode_vs_forward on an f32 copy of the weights of `cfg` (the served
+    config, or replay_config's cut of it), fed the served run's tokens, with
+    every decode cache (the SSD and RG-LRU conv histories, the attention
+    k/v) kept in `cache_dtype`, and each decode step's routing recorded."""
     from repro_torch.models import Model, attention, rglru, ssm
     slots = ((ssm, "CACHE_CONV_DTYPE"), (rglru, "CACHE_CONV_DTYPE"),
              (attention, "CACHE_DTYPE"))
@@ -1479,20 +1708,40 @@ def f32_replay(torch, cfg, seq, toks, cache_dtype):
         setattr(mod, name, cache_dtype)
     try:
         model = Model(cfg, device="cuda", seed=SEED).float()
-        logits, cache = model.prefill(seq[:, :PROMPT], PROMPT + STEPS)
-        replay = []
+        with recorded_layers(resid=False) as (pre_routes, _):
+            logits, cache = model.prefill(seq[:, :PROMPT], PROMPT + STEPS)
+        replay, routes = [], []
         for tok in toks[:-1]:
-            logits, cache = model.decode_step(tok, cache)
+            with recorded_layers(resid=False) as (r, _):
+                logits, cache = model.decode_step(tok, cache)
             replay.append(logits)
-        return decode_vs_forward(model, seq, replay)
+            routes.append(r)
+        return decode_vs_forward(model, seq, replay, pre_routes, routes)
     finally:
         for (mod, name), value in zip(slots, saved):
             setattr(mod, name, value)
 
 
+def _fmt_routing(r):
+    """_routing_diffs' counts, summed and by row."""
+    B, n = len(r["row_err"]), r["layers"] * r["k"]
+    tot = {key: sum(r[key]) for key in ROUTING_KEYS}
+    rows = "; ".join(f"row {b}: err {r['row_err'][b]:.4g}, {r['flips'][b]} flipped, "
+                     f"{r['dropped'][b]} dropped, earlier decode tokens {r['earlier'][b]}, "
+                     f"prompt {r['prompt_kept'][b]} kept and {r['prompt_chosen'][b]} chosen "
+                     "differently" for b in range(B))
+    return (f"; over {r['layers']} MoE layers: {tot['flips']} of {B * n} expert choices of "
+            f"decode not the forward's, the forward dropped {tot['dropped']} of its "
+            f"{B * n} assignments at this token; {tot['earlier']} choices or drops differ "
+            f"at the decode tokens before it; of the {B * PROMPT * n} prompt assignments "
+            f"{tot['prompt_kept']} kept and {tot['prompt_chosen']} chosen differently by "
+            f"the served prefill and the forward [{rows}]")
+
+
 def _fmt_checks(checks):
-    return ", ".join(f"pos {p}: max abs err {e:.4g} (max |logit| {s:.4g})"
-                     for p, (e, s) in checks.items())
+    return ", ".join(f"pos {p}: max abs err {c[0]:.4g} (max |logit| {c[1]:.4g}"
+                     + (_fmt_routing(c[2]) if len(c) > 2 else "") + ")"
+                     for p, c in checks.items())
 
 
 # buckets whose every kernel the profile lines list by name
@@ -1599,18 +1848,35 @@ def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch):
 # smaller still takes a longer step (TRAINED's fd_steps), so that the loss
 # moves well above the rounding of the f32 forward.
 FD_RTOL, FD_STEP = 1e-2, 1e-3
+# A MoE arch's loss is piecewise smooth: each token's top-k experts (and so
+# the kept assignments) are constant between the weights where two gates
+# tie. Autograd differentiates the branch the forward took, with the expert
+# ids and slots as constants, so the finite difference is taken on that
+# branch: every evaluation routes with the unperturbed forward's ids and
+# slots and recomputes the gates and weights from its own weights
+# (pinned_routing). Left free, the routing flips: the full-width two-layer
+# mixtral-8x7b at B 1 x S 2048 has gates within 8.3e-7 of a tie, and every
+# step from 1e-3 down to 1e-8 of the leaves' norm re-routed 6 to 7,526
+# tokens between the unperturbed forward and an evaluation on an H100, so
+# that the central difference measured a jump of the loss, not its slope
+# (PERF.md, the MoE findings). The step along the MoE arch's directions is
+# shorter than FD_STEP: at FD_STEP the router moves by more than its own
+# norm
+MOE_FD_STEP = 1e-5
 
 
 def _loss64(torch, model, batch):
-    """Model.loss's total (CE + 1e-4 z-loss; aux is 0) reduced in f64 from
-    the model's f32 logits."""
-    logits = model.apply(batch["tokens"]).double()
+    """Model.loss's total (CE + 1e-4 z-loss + 0.01 aux) reduced in f64 from
+    the model's f32 logits and its f32 MoE aux loss (0 without experts)."""
+    logits, aux = model.apply(batch["tokens"], return_aux=True)
+    logits = logits.double()
     labels = batch["labels"]
     lse = torch.logsumexp(logits, dim=-1)
     nll = lse - logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     mask = (labels >= 0).double()
     n = mask.sum().clamp_min(1.0)
-    return ((nll * mask).sum() / n + 1e-4 * (lse.square() * mask).sum() / n).item()
+    return ((nll * mask).sum() / n + 1e-4 * (lse.square() * mask).sum() / n
+            + 0.01 * aux.double()).item()
 
 
 def _unit_direction(torch, params, names, g):
@@ -1664,6 +1930,16 @@ TRAINED = {
            "leaves": ("attention leaves", lambda k: ".attn." in k)},
     GRANITE: {"kernels": {"global": _K1}, "train_cut": DENSE_TRAIN_CUTS[GRANITE]},
     G12: {"kernels": {"local": _K1, "global": _K1}, "train_cut": DENSE_TRAIN_CUTS[G12]},
+    # the MoE leaves reach the loss through the einsums, not a kernel; they
+    # are the layer this arch adds, so they are its second direction. The
+    # loss is piecewise smooth in the weights (the routing is piecewise
+    # constant), and its differences are taken on the unperturbed forward's
+    # routing (pinned_routing)
+    MIXTRAL: {"kernels": {"local": _K1}, "train_cut": MOE_TRAIN_CUTS[MIXTRAL],
+              "superblock": ("local",), "sb_repeat": 2,
+              "leaves": ("MoE leaves", lambda k: ".moe." in k),
+              "fd_steps": {"every leaf": MOE_FD_STEP, "MoE leaves": MOE_FD_STEP}},
+    DBRX: {"kernels": {"global": _K1}, "train_cut": MOE_TRAIN_CUTS[DBRX]},
 }
 
 
@@ -1688,9 +1964,12 @@ def phase_grad_check(torch, arch):
     RG-LRU scan 32) in f32: the gradient from the arch's kernel's forward and
     backward against a central finite difference of the loss along random
     directions, over every leaf and over the leaves whose gradient reaches
-    the loss only through that kernel (TRAINED); where TRAINED names a
-    refill, those leaves again after it. The forwards of the difference run
-    the forward kernel without autograd."""
+    the loss only through that kernel (TRAINED; mixtral-8x7b: its MoE
+    leaves); where TRAINED names a refill, those leaves again after it. The
+    forwards of the difference run the forward kernel without autograd, and
+    route every MoE layer with the unperturbed forward's expert ids and
+    slots (pinned_routing, MOE_FD_STEP), each evaluation logging how many
+    tokens it would have routed otherwise."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import Model
     from repro_torch.train.data import DataConfig, make_batch
@@ -1721,7 +2000,8 @@ def phase_grad_check(torch, arch):
                         params[k].fill_(value)
         for fn in counters.values():
             fn.launches = 0
-        loss, _ = model.loss(batch)
+        with recorded_layers() as (routes0, _):
+            loss, _ = model.loss(batch)
         loss.backward()
         torch.cuda.synchronize()
         got = {name: fn.launches for name, fn in counters.items()}
@@ -1737,13 +2017,21 @@ def phase_grad_check(torch, arch):
             step = spec.get("fd_steps", {}).get(label, FD_STEP)
             eps = step * sum(orig[k].double().square().sum() for k in names).sqrt().item()
 
+            flips = []
+
             def central(e):
                 side = {}
                 with torch.no_grad():
                     for sign in (1, -1):
                         for k in names:
                             params[k].copy_(orig[k] + sign * e * v[k])
-                        side[sign] = _loss64(torch, model, batch)
+                        with pinned_routing(routes0) as natural:
+                            side[sign] = _loss64(torch, model, batch)
+                        if len(natural) != len(routes0):
+                            fail(f"gradient check {arch} over {label}: {len(natural)} MoE "
+                                 f"routings pinned, want {len(routes0)}")
+                        flips.append(sum(int((r.top_i != r0.top_i).any(-1).sum())
+                                         for r, r0 in zip(natural, routes0)))
                     for k in names:
                         params[k].copy_(orig[k])
                 return (side[1] - side[-1]) / (2 * e)
@@ -1753,11 +2041,17 @@ def phase_grad_check(torch, arch):
             rel = abs(fd - gv) / abs(gv)
             out[label] = {"leaves": len(names), "step": step, "eps": eps, "fd": fd, "fd_eps": d1,
                           "fd_eps_half": d2, "grad_dot_v": gv, "rel_err": rel, "loss": L0}
+            pinned = ""
+            if routes0:
+                out[label]["tokens_rerouted_if_free"] = flips
+                pinned = (f"; routing pinned to the unperturbed forward's in {len(routes0)} "
+                          f"MoE layers, where a free routing would have moved {max(flips)} "
+                          "tokens at most")
             log(f"[grad] {cfg.name} f32 (B 1, S {TRAIN_SEQ}), direction over {label} "
                 f"({len(names)}): <g, v> {gv:.6g}, FD {fd:.6g} (central {d1:.6g} at eps "
                 f"{eps:.4g} = {step:g} of the leaves' norm, {d2:.6g} at eps / 2; loss "
                 f"{L0:.6f}); rel err {rel:.3g} "
-                f"(tol {FD_RTOL})")
+                f"(tol {FD_RTOL}){pinned}")
             if not (math.isfinite(rel) and rel <= FD_RTOL):
                 fail(f"gradient check {arch} over {label}: FD {fd:.6g} vs <g, v> {gv:.6g}, "
                      f"rel err {rel:.3g} > {FD_RTOL}")
@@ -1765,6 +2059,31 @@ def phase_grad_check(torch, arch):
     del model, params
     torch.cuda.empty_cache()
     return out
+
+
+@contextlib.contextmanager
+def pinned_routing(routes0):
+    """While active, the i-th ``moe.route`` call routes with routes0[i]'s
+    expert ids, kept assignments and slots, and computes the gates and the
+    renormalised top-k weights of those ids from its own router and input:
+    the loss on the branch routes0 was taken on. Yields the routings the
+    calls would have chosen left free."""
+    from repro_torch.models import moe
+    route, natural = moe.route, []
+
+    def pinned(router, xt, cfg, cap):
+        r = route(router, xt, cfg, cap)
+        r0 = routes0[len(natural)]
+        natural.append(r)
+        top_w = r.gates.gather(-1, r0.top_i)
+        top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        return r._replace(top_w=top_w, top_i=r0.top_i, keep=r0.keep, slot=r0.slot)
+
+    moe.route = pinned
+    try:
+        yield natural
+    finally:
+        moe.route = route
 
 
 def phase_autograd_on_card(torch):
@@ -1838,7 +2157,7 @@ def phase_train(torch, card, arch):
                                  global_batch=TRAIN_BATCH), device="cuda")
     for fn in counters.values():                   # the main path's run starts here
         fn.launches = 0
-    losses, gnorms, times = [], [], []
+    losses, gnorms, auxes, times = [], [], [], []
     for i in range(TRAIN_STEPS):
         before = {name: fn.launches for name, fn in counters.items()}
         batch = next(it)
@@ -1849,19 +2168,23 @@ def phase_train(torch, card, arch):
         times.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["gnorm"]))
+        auxes.append(float(metrics["aux"]))
         per_step = {name: fn.launches - before[name] for name, fn in counters.items()}
         if per_step != want:
             fail(f"train {arch} step {i}: launches {per_step}, want {want}")
         log(f"[train] step {i}: loss {losses[-1]:.6f}, gnorm {gnorms[-1]:.6g}, "
-            f"lr {metrics['lr']:.3g}, {times[-1] * 1e3:.2f} ms")
+            + (f"aux {auxes[-1]:.6f}, " if cfg.num_experts else "")
+            + f"lr {metrics['lr']:.3g}, {times[-1] * 1e3:.2f} ms")
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    if not all(math.isfinite(x) for x in losses + gnorms):
-        fail(f"train {arch}: non-finite loss or gnorm: {losses}, {gnorms}")
+    if not all(math.isfinite(x) for x in losses + gnorms + auxes):
+        fail(f"train {arch}: non-finite loss, gnorm or aux: {losses}, {gnorms}, {auxes}")
     step_ms = statistics.median(times[1:]) * 1e3
     tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
     log(f"[train] {cfg.name} B {TRAIN_BATCH} x S {TRAIN_SEQ}, remat full, {TRAIN_STEPS} "
-        f"steps: losses {[round(x, 6) for x in losses]}; median step (steps 2-"
+        f"steps: losses {[round(x, 6) for x in losses]}"
+        + (f", aux {[round(x, 6) for x in auxes]}" if cfg.num_experts else "")
+        + "; median step (steps 2-"
         f"{TRAIN_STEPS}) {step_ms:.2f} ms, {tok_s:.0f} tokens/s; peak memory "
         f"{peak / 1e9:.2f} GB ({peak} bytes); launches {launches} ({want} a step); {card}")
     _, *window = profile_window(torch, lambda: step_fn(state, next(it)))
@@ -1869,6 +2192,7 @@ def phase_train(torch, card, arch):
     del model, state, step_fn, it, batch, metrics
     torch.cuda.empty_cache()
     return {"config": cfg.name, "layers": cfg.num_layers, "losses": losses, "gnorms": gnorms,
+            **({"aux": auxes} if cfg.num_experts else {}),
             "step_ms": step_ms, "tokens_per_s": tok_s,
             "peak_bytes": peak, "state_bytes": state_bytes, "launches": launches,
             "launches_per_step": want,
@@ -1945,9 +2269,17 @@ def main(argv=None):
     qwen_grad = timed(f"grad {QWEN}", phase_grad_check, torch, QWEN)
     dense_train = {arch: timed(f"train {arch}", phase_train, torch, card, arch)
                    for arch in DENSE_ARCHS}
+    # the MoE archs at their serving cuts: 20 and 8 K1 launches a prefill
+    for arch in MOE_ARCHS:
+        by_arch[arch] = timed(f"serve {arch}", phase_serve, torch, arch, {
+            "flash_attention": MOE_SERVE_CUTS[arch]["num_layers"]})
+        torch.cuda.empty_cache()
+    moe_grad = timed(f"grad {MIXTRAL}", phase_grad_check, torch, MIXTRAL)
+    moe_train = {arch: timed(f"train {arch}", phase_train, torch, card, arch)
+                 for arch in MOE_ARCHS}
     flash["launches_by_path"] = {f"serve {a}": n["flash_attention"] for a, n in by_arch.items()
                                  if n["flash_attention"]}
-    trained_on_k1 = {ARCH: train, RG_ARCH: rg_train, **dense_train}
+    trained_on_k1 = {ARCH: train, RG_ARCH: rg_train, **dense_train, **moe_train}
     for a, t in trained_on_k1.items():
         flash["launches_by_path"][f"train {a}"] = t["launches"]["flash_attention"]
     flash["launches"] = sum(flash["launches_by_path"].values())
@@ -1956,9 +2288,10 @@ def main(argv=None):
     flash_bwd["launches"] = sum(flash_bwd["launches_by_path"].values())
     flash_bwd["grad_check"] = grad
     flash_bwd[f"grad_check {QWEN}"] = qwen_grad
+    flash_bwd[f"grad_check {MIXTRAL}"] = moe_grad
     flash_bwd["train"] = {k: v for k, v in train.items() if k != "launches"}
     flash_bwd["train_by_arch"] = {a: {k: v for k, v in t.items() if k != "launches"}
-                                  for a, t in dense_train.items()}
+                                  for a, t in {**dense_train, **moe_train}.items()}
     ssd["launches_by_path"] = {f"serve {SSM_ARCH}": by_arch[SSM_ARCH]["ssd"],
                                f"train {SSM_ARCH}": ssm_train["launches"]["ssd"]}
     ssd["launches"] = sum(ssd["launches_by_path"].values())

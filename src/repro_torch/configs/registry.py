@@ -1,8 +1,9 @@
 """Architecture registry: --arch <id> -> ModelConfig (ported archs only)."""
 from __future__ import annotations
 
-from repro_torch.configs import (gemma3_4b, gemma3_12b, granite_3_8b, mamba2_780m,
-                                 qwen3_8b, recurrentgemma_9b)
+from repro_torch.configs import (dbrx_132b, gemma3_4b, gemma3_12b, granite_3_8b,
+                                 mamba2_780m, mixtral_8x7b, qwen3_8b,
+                                 recurrentgemma_9b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
@@ -12,6 +13,8 @@ _MODULES = {
     "qwen3-8b": qwen3_8b,
     "granite-3-8b": granite_3_8b,
     "gemma3-12b": gemma3_12b,
+    "mixtral-8x7b": mixtral_8x7b,
+    "dbrx-132b": dbrx_132b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -3,14 +3,16 @@
 Structure: embed -> layers (superblock x repeat + remainder, unrolled into
 one list) -> final norm -> unembed. Each layer is a residual block:
 ln -> mixer (attention global | local, the Mamba2 SSD block or the RG-LRU
-block) [-> ln -> gated MLP, when d_ff > 0].
+block) [-> ln -> gated MLP, or the MoE layer when the config has experts,
+when d_ff > 0].
 
 Parameters keep the JAX package's layouts and nesting; the JAX stack of
 superblock layers (leading ``layers`` axis) becomes one ``ParamTree`` per
 layer, layer r*len(superblock)+i for slot i of repeat r, then the
 remainder. ``bridge.from_jax_params`` maps one onto the other.
 
-API: apply (full-sequence logits), loss (next-token CE), prefill
+API: apply (full-sequence logits, and on request the MoE aux loss summed
+over the layers), loss (next-token CE + z-loss + 0.01 aux), prefill
 (last-position logits + decode cache), init_cache, decode_step (one token),
 memory_len.
 
@@ -34,13 +36,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import CROSS_ATTN, ENC_ATTN, RGLRU, SSD, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import rglru, ssm
+from repro_torch.models import moe, rglru, ssm
 from repro_torch.models.layers import (ParamSpec, ParamTree, embed_apply,
                                        embed_specs, mlp_apply, mlp_specs,
                                        rms_norm, rms_norm_specs, unembed_apply)
 
 _NOT_PORTED = {
-    "moe": "MoE (ROADMAP queue 1, item 3)",
     CROSS_ATTN: "cross-attention (ROADMAP queue 1, item 4)",
     ENC_ATTN: "encoder attention (ROADMAP queue 1, item 4)",
     "encdec": "encoder-decoder (ROADMAP queue 1, item 4)",
@@ -68,7 +69,8 @@ class Ctx:
     """Per-call context, the counterpart of the JAX package's ``Ctx``: the
     remat policy of the superblock body under autograd (none | dots | full).
     The port has one implementation of each mixer and no mesh, so it has no
-    ``attn_impl`` and no sharding hook."""
+    ``attn_impl``, no sharding hook and no ``moe_groups`` (MoE routes a
+    call's tokens as one group)."""
     remat: str = "none"
 
 
@@ -79,8 +81,6 @@ class Ctx:
 def _check_ported(cfg: ModelConfig, kind: str):
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"{_NOT_PORTED[kind]} is not ported yet")
-    if cfg.num_experts:
-        raise NotImplementedError(f"{_NOT_PORTED['moe']} is not ported yet")
     if cfg.is_encdec:
         raise NotImplementedError(f"{_NOT_PORTED['encdec']} is not ported yet")
 
@@ -95,13 +95,27 @@ def layer_specs(cfg: ModelConfig, kind: str):
         s["attn"] = attn.attention_specs(cfg)
     if cfg.d_ff:
         s["ln2"] = rms_norm_specs(d)
-        s["mlp"] = mlp_specs(d, cfg.d_ff)
+        if cfg.num_experts:
+            s["moe"] = moe.moe_specs(cfg)
+        else:
+            s["mlp"] = mlp_specs(d, cfg.d_ff)
     return s
+
+
+def _feed_forward(p, h, cfg):
+    """h + the gated MLP or the MoE layer of rms_norm(h). Returns (h, aux):
+    the MoE aux loss, or 0.0 where the layer has no experts."""
+    m_in = rms_norm(h, p["ln2"]["scale"], cfg.norm_eps)
+    if cfg.num_experts:
+        m, aux = moe.moe_apply(p["moe"], m_in, cfg)
+        return h + m, aux
+    return h + mlp_apply(p["mlp"], m_in, cfg.act), 0.0
 
 
 def apply_layer(p, h, kind, cfg, ctx, positions=None, collect_cache=False,
                 cache_len=0):
-    """Residual block.  Returns (h, cache|None)."""
+    """Residual block.  Returns (h, aux_loss, cache|None); aux_loss is 0.0
+    where the layer has no experts."""
     a_in = rms_norm(h, p["ln1"]["scale"], cfg.norm_eps)
     cache = None
     if kind in _MIXERS:
@@ -113,16 +127,16 @@ def apply_layer(p, h, kind, cfg, ctx, positions=None, collect_cache=False,
                                            positions=positions)
         if collect_cache:
             cache = {"attn": attn.pack_prefill_cache(k, v, kind, cfg, cache_len)}
-    h = h + out
+    h, aux = h + out, 0.0
     if cfg.d_ff:
-        m_in = rms_norm(h, p["ln2"]["scale"], cfg.norm_eps)
-        h = h + mlp_apply(p["mlp"], m_in, cfg.act)
-    return h, cache
+        h, aux = _feed_forward(p, h, cfg)
+    return h, aux, cache
 
 
 def apply_layer_decode(p, h, layer_cache, pos, kind, cfg, ctx):
     """One-token residual block.  h (B,1,D).  Returns (h, layer_cache),
-    the cache updated in place."""
+    the cache updated in place; the MoE aux loss is dropped, as in the JAX
+    package."""
     a_in = rms_norm(h, p["ln1"]["scale"], cfg.norm_eps)
     if kind in _MIXERS:
         out, _ = _MIXERS[kind].decode(p["mixer"], a_in, layer_cache["mixer"], cfg, ctx)
@@ -131,8 +145,7 @@ def apply_layer_decode(p, h, layer_cache, pos, kind, cfg, ctx):
                                        pos, cfg, ctx, kind)
     h = h + out
     if cfg.d_ff:
-        m_in = rms_norm(h, p["ln2"]["scale"], cfg.norm_eps)
-        h = h + mlp_apply(p["mlp"], m_in, cfg.act)
+        h, _ = _feed_forward(p, h, cfg)
     return h, layer_cache
 
 
@@ -184,7 +197,8 @@ class Model(nn.Module):
         return (self.embed if self.cfg.tie_embeddings else self.unembed)["table"]
 
     def _trunk(self, tokens, ctx, collect_cache=False, cache_len=0):
-        """Embed, all layers, final norm: (h (B,S,D), per-layer caches)."""
+        """Embed, all layers, final norm: (h (B,S,D), per-layer caches, the
+        MoE aux loss summed over the layers (0.0 without experts))."""
         cfg = self.cfg
         ctx = ctx or Ctx()
         h = embed_apply(self.embed, tokens, cfg.d_model)
@@ -194,34 +208,43 @@ class Model(nn.Module):
         nsb = len(cfg.superblock)
 
         def layer(i, h):
-            h, c = apply_layer(self.layers[i], h, cfg.layer_kinds[i], cfg, ctx,
-                               positions=positions, collect_cache=collect_cache,
-                               cache_len=cache_len)
+            h, aux, c = apply_layer(self.layers[i], h, cfg.layer_kinds[i], cfg, ctx,
+                                    positions=positions, collect_cache=collect_cache,
+                                    cache_len=cache_len)
             caches.append(c)
-            return h
+            return h, aux
 
         def superblock(h, r):
+            aux = 0.0
             for i in range(r * nsb, (r + 1) * nsb):
-                h = layer(i, h)
-            return h
+                h, a = layer(i, h)
+                aux = aux + a
+            return h, aux
 
         # rematted repeats first; then every other layer one by one, so that
         # no layer's input outlives the layer where nothing is rematted
         remat = None if collect_cache else _maybe_remat(superblock, ctx)
-        start = 0
+        start, aux = 0, 0.0
         if remat is not None:
             for r in range(cfg.sb_repeat):
-                h = remat(h, r)
+                h, a = remat(h, r)
+                aux = aux + a
             start = nsb * cfg.sb_repeat
         for i in range(start, cfg.num_layers):
-            h = layer(i, h)
-        return rms_norm(h, self.final_norm["scale"], cfg.norm_eps), caches
+            h, a = layer(i, h)
+            aux = aux + a
+        return rms_norm(h, self.final_norm["scale"], cfg.norm_eps), caches, aux
 
     # -- full-sequence forward ----------------------------------------------
-    def apply(self, tokens, ctx=None):
-        """tokens (B,S) -> logits (B,S,V) f32."""
-        h, _ = self._trunk(tokens, ctx)
-        return unembed_apply(self._table(), h, self.cfg.logits_soft_cap)
+    def apply(self, tokens, ctx=None, return_aux=False):
+        """tokens (B,S) -> logits (B,S,V) f32; with ``return_aux`` (logits,
+        the MoE aux loss summed over the layers as an f32 scalar), as the
+        JAX package's apply returns them."""
+        h, _, aux = self._trunk(tokens, ctx)
+        logits = unembed_apply(self._table(), h, self.cfg.logits_soft_cap)
+        if not return_aux:
+            return logits
+        return logits, torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
 
     def forward(self, tokens, ctx=None):
         return self.apply(tokens, ctx)
@@ -230,12 +253,14 @@ class Model(nn.Module):
     def loss(self, batch, ctx=None):
         """batch: {tokens (B,S), labels (B,S) (-1 = pad)}. Returns
         (total, {ce, aux, zloss, ntok}): next-token CE over f32 logits, a
-        1e-4 z-loss on the log normalizer, and 0.01 aux (0: no ported arch
-        has experts). The label logit is gathered, which gives the same
-        numbers as the JAX package's gather-free select-and-sum."""
+        1e-4 z-loss on the log normalizer, and 0.01 times the MoE aux loss
+        summed over the layers (0 without experts). The label logit is
+        gathered, which gives the same numbers as the JAX package's
+        gather-free select-and-sum."""
         if batch.get("memory") is not None:
             raise NotImplementedError(f"{_NOT_PORTED['encdec']} is not ported yet")
-        logits = self.apply(batch["tokens"], ctx).float()
+        logits, aux = self.apply(batch["tokens"], ctx, return_aux=True)
+        logits = logits.float()
         labels = batch["labels"]
         lse = torch.logsumexp(logits, dim=-1)                         # (B,S)
         sel = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
@@ -244,7 +269,6 @@ class Model(nn.Module):
         ntok = mask.sum().clamp_min(1.0)
         ce = (nll * mask).sum() / ntok
         zloss = 1e-4 * (lse.square() * mask).sum() / ntok
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
         total = ce + zloss + 0.01 * aux
         return total, {"ce": ce, "aux": aux, "zloss": zloss, "ntok": ntok}
 
@@ -253,8 +277,8 @@ class Model(nn.Module):
         """Full forward + packed decode cache.  Returns (last_logits (B,V),
         cache). Only the last position is unembedded: the same numbers as
         apply(tokens)[:, -1] without a (B,S,V) buffer."""
-        h, caches = self._trunk(tokens, ctx, collect_cache=True,
-                                cache_len=cache_len)
+        h, caches, _ = self._trunk(tokens, ctx, collect_cache=True,
+                                   cache_len=cache_len)
         logits = unembed_apply(self._table(), h[:, -1:], self.cfg.logits_soft_cap)
         return logits[:, 0], {"pos": tokens.shape[1], "layers": caches}
 
@@ -302,7 +326,9 @@ def _save_weight_products(ctx, op, *args, **kwargs):
     """``dots``: keep the outputs of products with no batch dimensions (the
     weight products: mm, addmm, and the bmm with a batch of one that einsum
     makes of them), as ``checkpoint_dots_with_no_batch_dims`` does; recompute
-    everything else."""
+    everything else. The MoE router's product is such a bmm and is kept; the
+    expert products are bmm over the expert batch and are recomputed, as
+    under the JAX policy, where their expert dimension is a batch dimension."""
     if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
             op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
         return CheckpointPolicy.MUST_SAVE

@@ -213,7 +213,7 @@ def test_prefill_and_decode_match_forward():
 
 
 @pytest.mark.parametrize("change", [
-    {"num_experts": 4, "experts_per_token": 2},
+    {"superblock": ("global", "cross"), "sb_repeat": 2, "remainder": ()},
     {"superblock": ("rglru", "cross"), "sb_repeat": 2, "remainder": ()},
     {"superblock": ("ssd", "enc"), "sb_repeat": 2, "remainder": ()},
     {"superblock": ("local", "cross"), "sb_repeat": 2, "remainder": ()},
@@ -227,10 +227,10 @@ def test_unported_layers_raise(change):
 
 def test_registry_lists_ported_archs():
     for arch in ("gemma3-4b", "mamba2-780m", "recurrentgemma-9b", "qwen3-8b",
-                 "granite-3-8b", "gemma3-12b"):
+                 "granite-3-8b", "gemma3-12b", "mixtral-8x7b", "dbrx-132b"):
         assert get_config(arch).param_count() == jax_config(arch).param_count()
     with pytest.raises(KeyError, match="gemma3-4b"):
-        get_config("mixtral-8x7b")
+        get_config("llama-3.2-vision-90b")
 
 
 @pytest.mark.parametrize("smoke", [False, True])

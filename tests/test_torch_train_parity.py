@@ -214,7 +214,7 @@ def test_from_jax_opt_state_maps_every_leaf():
     assert all(v.dtype == torch.float32 and torch.all(v == 1) for v in got.mu.values())
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("mixtral-8x7b", "dbrx-132b"))
 def test_remat_policies_give_the_same_loss_and_grads(arch):
     _, params = _jax_params(arch)
     cfg = get_config(arch, smoke=True)
