@@ -9,7 +9,7 @@ a kernel's plain version:
   1. device  the card's name and power limit (nvidia-smi), torch and CUDA
   2. build   compile every CUDA source of src/repro_torch/kernels/csrc (nvcc,
              sm_90a, one process per source, all at once); ptxas registers
-             and spills of K1's served bf16 instances (hd 256 and hd 128)
+             and spills of K1's served bf16 instances (hd 256, 128 and 64)
   3. kernels each kernel against its plain version on the card, on the same
              inputs; medians of CUDA-event times:
              flash_attention: the serving shapes in bf16 (3e-2), each with
@@ -19,25 +19,30 @@ a kernel's plain version:
              timed once), gemma3-12b's global and local layers (H 16 over
              KV 8, hd 256, window 1024), dbrx-132b's layer (H 48 over KV 8,
              hd 128) and mixtral-8x7b's (H 32 over KV 8, hd 128, window
-             4096), and K1's time per prefill of each arch (the MoE archs at
-             their serving cuts); a bf16 sweep over
-             every head dim, S of 1, 80, 200, 328, 2049 and 3000, GQA 1, 2,
-             6 and 16, Sq != Sk and causal, windowed and non-causal masks
-             (3e-2);
+             4096), seamless-m4t-medium's (MHA 16, hd 64) enc layer
+             (unmasked, 1536 x 1536), global layer and xattn sub-layer
+             (unmasked, 2048 queries over 1536 keys), llama-3.2-vision-90b's
+             (H 64 over KV 8, hd 128) global and cross layers (unmasked, 2048
+             over 1601 keys), and K1's time per prefill of each arch (the
+             MoE archs and llama at their serving cuts); a bf16 sweep over
+             every head dim, S of 1, 80, 200, 328, 1536, 1601, 2048, 2049
+             and 3000, GQA 1, 2, 6, 8 and 16, Sq != Sk both ways (unmasked
+             with Sq > Sk at seamless's xattn and llama's cross shapes) and
+             causal, windowed and non-causal masks (3e-2);
              and the f32 sweep of tests/test_kernels.py (2e-5); with the
              optional lse: o bit-equal with and without it, lse against the
              plain logsumexp (1e-5 f32, 1e-2 bf16), the time with and
              without it at gemma global;
-             flash_attention_bwd: the same 22-case sweep in bf16 and f32 and
-             the training shapes at B 2 (gemma3-4b global and window 1024,
-             recurrentgemma-9b's local layer, where the dK/dV kernel splits
-             the 16 query heads, qwen3-8b's layer, gemma3-12b's global and
-             local layers, dbrx-132b's and mixtral-8x7b's layers), against
+             flash_attention_bwd: the same 25-case sweep in bf16 and f32 and
+             the training shapes at B 2 (K1's serving shapes above:
+             recurrentgemma-9b's local layer is where the dK/dV kernel
+             splits the 16 query heads), against
              the plain backward (relative to
              max(1, max |ref|): f32 1e-4, bf16 2e-2 against the bf16 inputs
              upcast to f32); 20 calls bit-equal at gemma global, at
-             recurrentgemma local, at qwen3-8b's shape, at dbrx-132b's and
-             at the sweep's GQA 6 case (bf16, its heads split); its time
+             recurrentgemma local, at qwen3-8b's shape, at dbrx-132b's, at
+             llama-3.2-vision-90b's cross shape and at the sweep's GQA 6
+             case (bf16, its heads split); its time
              beside
              the bound, the plain
              backward and SDPA's backward (its backend recorded, as for the
@@ -100,7 +105,16 @@ a kernel's plain version:
              choices and drops at the checked and earlier decode tokens,
              prompt assignments), the rows routed the same everywhere held
              to the dense archs' rule, and decode gated on a drop-free f32
-             replay (F32_REPLAY); none in decode; no backward launch
+             replay (F32_REPLAY); seamless-m4t-medium at full size (36 per
+             prefill: 12 enc, 12 causal, 12 xattn) and llama-3.2-vision-90b
+             at 30 layers (CROSS_SERVE_CUTS; 24 causal, 6 cross), with bf16
+             stub memory and every gate at GATE, and a liveness check: other
+             memory must move the logits by more than DECODE_RTOL x max
+             |logit|; none in decode; no backward launch. The timed run is
+             the bare path (it fails if moe.route or model.apply_layer is
+             wrapped); a MoE arch's routings come from a second, untimed run
+             fed the same tokens, its decode time printed beside the bare
+             one
   5. grad    a full-width two-layer gemma3-4b (one local, one global layer,
              B 1, S 2048) in f32: the gradient from K1's forward and backward
              against a Richardson-extrapolated central difference of the
@@ -120,7 +134,11 @@ a kernel's plain version:
              for a full-width two-layer mixtral-8x7b over every leaf and over
              its MoE leaves (router, wi, wg, wo), each evaluation routed
              with the unperturbed forward's expert ids and slots (the
-             branch autograd differentiates; MOE_FD_STEP)
+             branch autograd differentiates; MOE_FD_STEP); and for a
+             seamless-m4t-medium of one encoder and one decoder layer and a
+             llama-3.2-vision-90b of (global, cross) at full width, gates at
+             GATE and std-1 stub memory, over every leaf and over the
+             encoder, xattn and gate leaves or the cross layer's
   6. train   gemma3-4b at full width and depth, B 2 x S 2048 from the
              port's data, remat full, 6 AdamW steps: finite losses and
              gnorms, per step exactly the K1 forwards (34 + 30 recomputed)
@@ -138,7 +156,11 @@ a kernel's plain version:
              (24, 12), each at full width (DENSE_TRAIN_CUTS); then
              mixtral-8x7b at 2 layers (4 K1 forwards, 2 backwards a step)
              and dbrx-132b at 1 (2, 1), each at full width
-             (MOE_TRAIN_CUTS), with the MoE aux loss of each step; for each,
+             (MOE_TRAIN_CUTS), with the MoE aux loss of each step; then
+             seamless-m4t-medium at full size (72 K1 forwards, 36 backwards
+             a step) and llama-3.2-vision-90b as a (global, cross) cut
+             (CROSS_TRAIN_CUTS; 4, 2), gates at GATE, the data's stub memory
+             in every batch; for each,
              step time, tokens/s, peak memory and a profiler window of one
              step
 Prints the kernels JSON line, the nvidia-smi line, and last
@@ -178,6 +200,19 @@ DENSE_ARCHS = (QWEN, GRANITE, G12)
 # expert products are einsums (bmm over the experts); K1 is their kernel
 MIXTRAL, DBRX = "mixtral-8x7b", "dbrx-132b"
 MOE_ARCHS = (MIXTRAL, DBRX)
+# the cross-attention archs: seamless-m4t-medium (an encoder-decoder: 12
+# bidirectional enc layers over 1536 stub frames, then 12 causal decoder
+# layers, each with a gated xattn sub-layer over the encoder's output; MHA 16
+# at hd 64) and llama-3.2-vision-90b (a vlm: (global x 4, cross) x 20, the
+# cross layers over 1601 stub patch embeddings; 64 q heads over 8 kv heads at
+# hd 128). K1 runs their cross, xattn and enc attention unmasked
+SEAMLESS, LLAMA = "seamless-m4t-medium", "llama-3.2-vision-90b"
+CROSS_ARCHS = (SEAMLESS, LLAMA)
+# every cross gate (llama's cross layers, seamless's xattn sub-layers) is set
+# to GATE in every check of these archs: at the init's zero a cross layer adds
+# exactly nothing, seamless's logits do not depend on its encoder, and a wrong
+# cross path passes every check
+GATE = 0.5
 # decode vs full forward, relative to the largest logit: bf16 rounds every
 # layer's output (2^-9 relative) and decode rounds its scores to bf16 where
 # the kernel keeps f32; over 34 layers that stays within a few percent. A
@@ -214,6 +249,18 @@ DECODE_RTOL = 0.1
 # is held to DECODE_RTOL like a dense arch.
 F32_REPLAY = {SSM_ARCH, MIXTRAL, DBRX}
 F32_DECODE_RTOL = 1e-3
+# llama-3.2-vision-90b's decode is held twice: by the bf16 rule and on the f32
+# replay of one superblock (REPLAY_CUTS) at F32_DECODE_RTOL. Other stub memory
+# moves its served logits by only 2.2% of the largest logit (its 30-layer
+# cut on an NVIDIA H100 80GB HBM3 at 700 W, random weights from SEED: 24
+# causal layers dominate the residual stream, and a cross layer averages
+# over 1601 keys), so the bf16 rule alone, at
+# DECODE_RTOL, could not see a cross path that decode got wrong. The liveness
+# check asks the memory to move the logits by more than the tolerance of the
+# tightest rule that holds the arch's decode: DECODE_RTOL on the served run
+# for seamless-m4t-medium, F32_DECODE_RTOL on the served run and on the
+# replay for llama
+CROSS_F32_REPLAY = {LLAMA}
 
 
 # GQA 6 (dbrx-132b's 48 q heads over 8 kv heads), ragged S, where the
@@ -222,7 +269,10 @@ GQA6_CASE = (128, 2, 6, 3000, 3000, True, 0)
 # the forward's bf16 sweep (hd, BKV, G, Sq, Sk, causal, window): every head
 # dim (swizzle 32, 64 and 128 B; 1, 2 and 4 boxes a row), S ragged against
 # both the 64-key and the 128-row tiles, GQA 1, 2, 6 and 16, Sq != Sk both ways,
-# and causal, windowed and non-causal masks
+# and causal, windowed and non-causal masks; the last two are the first
+# non-causal cases with Sq > Sk: seamless-m4t-medium's xattn (hd 64, MHA, Sq
+# 2048 over Sk 1536) and llama-3.2-vision-90b's cross layer (hd 128, GQA 8,
+# Sk 1601, ragged against the 64-key tile)
 FLASH_CASES = []
 for _hd in (16, 32, 64, 128, 256):
     FLASH_CASES += [(_hd, 2, 1, 80, 80, False, 0), (_hd, 2, 2, 200, 200, True, 0),
@@ -231,7 +281,8 @@ FLASH_CASES += [(256, 2, 2, 200, 328, False, 0), (128, 2, 2, 328, 200, True, 150
                 (64, 2, 2, 80, 200, True, 0), (32, 2, 2, 200, 200, False, 64),
                 (256, 1, 16, 2049, 2049, False, 0),
                 # one row and one key; one row over many keys
-                (16, 1, 1, 1, 1, True, 0), (256, 2, 2, 1, 3000, False, 0), GQA6_CASE]
+                (16, 1, 1, 1, 1, True, 0), (256, 2, 2, 1, 3000, False, 0), GQA6_CASE,
+                (64, 2, 1, 2048, 1536, False, 0), (128, 1, 8, 2048, 1601, False, 0)]
 
 # K1's backward against the plain backward, relative to max(1, max |ref|) per
 # tensor: f32 against the plain backward in f32 (summation order; the
@@ -281,15 +332,57 @@ MOE_REPLAY_CUTS = {
     MIXTRAL: {"name": f"{MIXTRAL}-4layer", "num_layers": 4, "sb_repeat": 4},
     DBRX: {"name": f"{DBRX}-2layer", "num_layers": 2, "sb_repeat": 2},
 }
+# llama-3.2-vision-90b serves at full width and 30 of its 100 layers: 87.67 B
+# parameters (175 GB of bf16) at full depth; (global x 4, cross) x 6 hold
+# 27.77 B (55.5 GB) and keep the pattern. seamless-m4t-medium (0.665 B)
+# serves and trains at full size
+CROSS_SERVE_CUTS = {LLAMA: {"name": f"{LLAMA}-30layer", "num_layers": 30, "sb_repeat": 6}}
+# llama trains as a two-layer (global, cross) cut, which changes the pattern
+# (one global layer before the cross layer, where the arch has four): one
+# full superblock is 6.38 B, 76.6 GB of state at 12 bytes a parameter, with no
+# room for activations; the cut holds 3.81 B (about 46 GB of state), the size
+# of the other training cuts. Its gradient check runs the same two layers
+CROSS_TRAIN_CUTS = {LLAMA: {"name": f"{LLAMA}-2layer", "num_layers": 2,
+                            "superblock": ("global", "cross"), "sb_repeat": 1}}
+SERVE_CUTS = {**MOE_SERVE_CUTS, **CROSS_SERVE_CUTS}
+# an f32 replay of llama's 30-layer cut would need 111 GB: one superblock
+REPLAY_CUTS = {**MOE_REPLAY_CUTS,
+               LLAMA: {"name": f"{LLAMA}-5layer", "num_layers": 5, "sb_repeat": 1}}
+
+
+def serve_config(get_config, arch):
+    """`arch`'s config as the serve phase runs it (cut as SERVE_CUTS says)."""
+    return get_config(arch).replace(**SERVE_CUTS.get(arch, {}))
 
 
 def replay_config(arch, cfg):
-    """The config of `arch`'s f32 replay: the served config, or for a MoE
-    arch its MOE_REPLAY_CUTS cut at capacity factor E/k (nothing drops)."""
-    if arch not in MOE_REPLAY_CUTS:
+    """The config of `arch`'s f32 replay: the served config, or its
+    REPLAY_CUTS cut, a MoE arch's at capacity factor E/k (nothing drops)."""
+    if arch not in REPLAY_CUTS:
         return cfg
-    return cfg.replace(**MOE_REPLAY_CUTS[arch],
-                       capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    cfg = cfg.replace(**REPLAY_CUTS[arch])
+    if cfg.num_experts:
+        cfg = cfg.replace(capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    return cfg
+
+
+def set_gates(torch, model, value=GATE):
+    """Set every cross gate of `model` (0 where it has none) to `value`;
+    returns how many."""
+    gates = [p for name, p in model.named_parameters() if name.endswith(".gate")]
+    with torch.no_grad():
+        for p in gates:
+            p.fill_(value)
+    return len(gates)
+
+
+def stub_memory(torch, cfg, seed, batch=None):
+    """The stub frontend's memory (batch, or BATCH, by memory length, D):
+    standard normals in bf16 from `seed`, as launch/serve.py draws them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = cfg.context_tokens if cfg.family == "vlm" else cfg.encoder_len
+    return torch.randn(batch or BATCH, n, cfg.d_model, generator=g,
+                       device="cuda").to(torch.bfloat16)
 
 
 def fail(msg):
@@ -352,51 +445,80 @@ def attention_bound_ms(q, k, causal, window):
 
 
 # K1's shapes in phase 3: (label, arch, layer kind), each (heads, kv heads,
-# head dim, window) timed once under the label of the first arch that has it
+# head dim, window, causal, Sq, Sk) timed once under the label of the first
+# arch that has it
 K1_SHAPES = (("global", ARCH, "global"), ("local", ARCH, "local"),
              (f"{RG_ARCH} local", RG_ARCH, "local"), (f"{QWEN} global", QWEN, "global"),
              (f"{G12} global", G12, "global"), (f"{G12} local", G12, "local"),
-             (f"{DBRX} global", DBRX, "global"), (f"{MIXTRAL} local", MIXTRAL, "local"))
+             (f"{DBRX} global", DBRX, "global"), (f"{MIXTRAL} local", MIXTRAL, "local"),
+             (f"{SEAMLESS} enc", SEAMLESS, "enc"), (f"{SEAMLESS} global", SEAMLESS, "global"),
+             (f"{SEAMLESS} xattn", SEAMLESS, "xattn"), (f"{LLAMA} global", LLAMA, "global"),
+             (f"{LLAMA} cross", LLAMA, "cross"))
 # the archs whose serving and training run K1, each timed per prefill and per
 # train step from K1_SHAPES
-SERVED_ON_K1 = (ARCH, RG_ARCH) + DENSE_ARCHS + MOE_ARCHS
+SERVED_ON_K1 = (ARCH, RG_ARCH) + DENSE_ARCHS + MOE_ARCHS + CROSS_ARCHS
+# the kinds of K1 launch: causal self-attention (global, local), a cross
+# layer over the memory, the xattn sub-layer of an enc-dec model's global
+# layers over the encoder's output, and the encoder's enc layers
+K1_KINDS = ("global", "local", "cross", "xattn", "enc")
 
 
-def k1_shape(cfg, kind):
-    """(heads, kv heads, head dim, window) of K1 in a layer of `kind`."""
+def kind_layers(cfg, kind):
+    """(layers of `kind` in one forward of `cfg`, those of them that remat
+    recomputes): a decoder layer kind counts its layers, the superblock's
+    rematted; xattn counts an enc-dec model's global layers, rematted with
+    the superblock; enc the encoder's layers, each rematted."""
+    if kind == "enc":
+        return cfg.encoder_layers, cfg.encoder_layers
+    if kind == "xattn":
+        if not cfg.encoder_layers:
+            return 0, 0
+        kind = "global"
+    return cfg.layer_kinds.count(kind), cfg.superblock.count(kind) * cfg.sb_repeat
+
+
+def k1_layers(cfg):
+    """The kind of each of K1's launches in one forward of `cfg`."""
+    return [kind for kind in K1_KINDS for _ in range(kind_layers(cfg, kind)[0])]
+
+
+def k1_shape(cfg, kind, seq=PROMPT):
+    """(heads, kv heads, head dim, window, causal, Sq, Sk) of K1 in a layer
+    of `kind` over `seq` tokens (the training sequence is as long as the
+    prompt): a cross or xattn layer's keys are the memory, an enc layer's
+    queries too."""
+    mem = cfg.context_tokens or cfg.encoder_len
     return (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-            cfg.local_window if kind == "local" else 0)
+            cfg.local_window if kind == "local" else 0, kind in ("global", "local"),
+            mem if kind == "enc" else seq, mem if kind in ("cross", "xattn", "enc") else seq)
 
 
 def k1_shapes(get_config):
-    """[(label, config, window)] of K1_SHAPES."""
+    """[(label, config, shape)] of K1_SHAPES."""
     out = []
     for label, arch, kind in K1_SHAPES:
         cfg = get_config(arch)
-        out.append((label, cfg, k1_shape(cfg, kind)[3]))
+        out.append((label, cfg, k1_shape(cfg, kind)))
     return out
 
 
-def k1_shape_archs(get_config, cfg, window):
-    """The archs of SERVED_ON_K1 with a layer of this config's K1 shape."""
-    want = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, window)
+def k1_shape_archs(get_config, shape):
+    """The archs of SERVED_ON_K1 with a K1 launch of this shape."""
     archs = [(a, get_config(a)) for a in SERVED_ON_K1]
-    return [a for a, c in archs if any(k1_shape(c, kind) == want for kind in
-                                       set(c.layer_kinds) & {"global", "local"})]
+    return [a for a, c in archs if any(k1_shape(c, kind) == shape for kind in set(k1_layers(c)))]
 
 
 def per_model(get_config, per, archs, cuts=None):
     """{arch: {launches, ms, plain_ms, library_ms, bound_ms}}: K1's per-launch
-    times in `per` (by K1_SHAPES label) summed over the attention layers of
-    each arch's config (cut as `cuts` says), one launch a layer."""
+    times in `per` (by K1_SHAPES label) summed over K1's launches in one
+    forward of each arch's config (cut as `cuts` says)."""
     label_of = {}
-    for label, cfg, window in k1_shapes(get_config):
-        label_of.setdefault((cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, window), label)
+    for label, _, shape in k1_shapes(get_config):
+        label_of.setdefault(shape, label)
     out = {}
     for arch in archs:
         cfg = get_config(arch).replace(**(cuts or {}).get(arch, {}))
-        labels = [label_of[k1_shape(cfg, kind)] for kind in cfg.layer_kinds
-                  if kind in ("global", "local")]
+        labels = [label_of[k1_shape(cfg, kind)] for kind in k1_layers(cfg)]
         out[cfg.name] = {"launches": len(labels), **{
             key: sum(per[x][key] for x in labels)
             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}}
@@ -433,9 +555,10 @@ def ptxas_usage(text):
 
 
 # the served instances of K1: the bf16 kernel at head dims 256 (gemma3,
-# recurrentgemma-9b) and 128 (qwen3-8b, granite-3-8b); and the bf16 kernels
-# of its backward, an instance per head dim
-K1_SERVED_KERNEL, K1_SERVED_HDS = "flash_fwd_bf16_kernel", (256, 128)
+# recurrentgemma-9b), 128 (qwen3-8b, granite-3-8b, the MoE archs,
+# llama-3.2-vision-90b) and 64 (seamless-m4t-medium); and the bf16 kernels of
+# its backward, an instance per head dim
+K1_SERVED_KERNEL, K1_SERVED_HDS = "flash_fwd_bf16_kernel", (256, 128, 64)
 K1_BWD_ENTRIES = ("flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel")
 
 
@@ -538,52 +661,54 @@ def phase_kernels(torch, ptxas_served):
     log(f"[kernels] flash_attention bf16 sweep, {len(FLASH_CASES)} cases (every head dim, "
         f"ragged S, GQA 1/2/6/16, Sq != Sk, three masks): max err {wide_err:.3g} (tol 3e-2)")
 
-    # the serving shapes, B 4, S 2048, bf16 (K1_SHAPES): gemma3-4b's (H 8, KV
-    # 4, hd 256) global layer (causal) and local one (causal, window 1024),
+    # the serving shapes, B 4, bf16 (K1_SHAPES): gemma3-4b's (H 8, KV 4, hd
+    # 256) global layer (causal) and local one (causal, window 1024),
     # recurrentgemma-9b's local layer (H 16 over one kv head, window 2048),
     # qwen3-8b's layer (H 32 over KV 8, hd 128; granite-3-8b's is the same
     # shape, timed once), gemma3-12b's (H 16 over KV 8, hd 256) global and
-    # local (window 1024) layers
+    # local (window 1024) layers, the MoE archs' layers, seamless-m4t-medium's
+    # (MHA 16, hd 64) enc (unmasked, 1536 frames), global and xattn (2048
+    # queries, unmasked over 1536 keys) and llama-3.2-vision-90b's (H 64 over
+    # KV 8, hd 128) global and cross (unmasked over 1601 keys) layers
     from repro_torch.configs.registry import get_config
     cfg = get_config(ARCH)
     per = {}
-    for label, c, window in k1_shapes(get_config):
-        G = c.num_heads // c.num_kv_heads
-        q, k, v = inputs(BATCH * c.num_kv_heads, G, PROMPT, c.head_dim,
-                         torch.bfloat16)
-        err = check(q, k, v, True, window, 3e-2, f"serving shape {label}")
-        ms = cuda_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True,
+    for label, c, (H, KV, hd, window, causal, Sq, Sk) in k1_shapes(get_config):
+        q, k, v = inputs(BATCH * KV, H // KV, Sq, hd, torch.bfloat16, Sk)
+        err = check(q, k, v, causal, window, 3e-2, f"serving shape {label}")
+        ms = cuda_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=causal,
                                                         window=window))
         plain_ms = cuda_ms(torch, lambda: ref.flash_attention_oracle(
-            q, k, v, causal=True, window=window), reps=5)
+            q, k, v, causal=causal, window=window), reps=5)
         # yardstick only: one PyTorch call computing the same function
-        q4 = q.view(BATCH, c.num_heads, PROMPT, c.head_dim)
-        k4 = k.view(BATCH, c.num_kv_heads, PROMPT, c.head_dim)
-        v4 = v.view(BATCH, c.num_kv_heads, PROMPT, c.head_dim)
+        q4 = q.view(BATCH, H, Sq, hd)
+        k4 = k.view(BATCH, KV, Sk, hd)
+        v4 = v.view(BATCH, KV, Sk, hd)
         # a window as long as the prompt masks no more than causality does
         mask = None
-        if 0 < window < PROMPT:
-            pos = torch.arange(PROMPT, device="cuda")
+        if 0 < window < Sq:
+            pos = torch.arange(Sq, device="cuda")
             d = pos[:, None] - pos[None, :]
             mask = (d >= 0) & (d < window)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q4, k4, v4, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
-        backend = sdpa_backend(torch, q4, k4, v4, mask, mask is None)
+            q4, k4, v4, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+        backend = sdpa_backend(torch, q4, k4, v4, mask, causal and mask is None)
         lib_err = (lib().reshape(q.shape).float()
-                   - flash_attention_fwd(q, k, v, causal=True, window=window).float()
+                   - flash_attention_fwd(q, k, v, causal=causal, window=window).float()
                    ).abs().max().item()
         library_ms = cuda_ms(torch, lib)
-        bound_ms, bound_by = attention_bound_ms(q, k, True, window)
-        per[label] = {"window": window, "heads": c.num_heads,
-                      "kv_heads": c.num_kv_heads, "head_dim": c.head_dim,
-                      "archs": k1_shape_archs(get_config, c, window), "max_abs_err": err, "ms": ms,
+        bound_ms, bound_by = attention_bound_ms(q, k, causal, window)
+        per[label] = {"window": window, "heads": H, "kv_heads": KV, "head_dim": hd,
+                      "causal": causal, "sq": Sq, "sk": Sk,
+                      "archs": k1_shape_archs(get_config, (H, KV, hd, window, causal, Sq, Sk)),
+                      "max_abs_err": err, "ms": ms,
                       "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "bound_share": bound_ms / ms, "vs_library": ms / library_ms,
                       "library_vs_kernel_max_abs_diff": lib_err, "sdpa_backend": backend}
-        log(f"[kernels] flash_attention {label} (H {c.num_heads} over KV {c.num_kv_heads}, hd "
-            f"{c.head_dim}, window {window}; the shape of {', '.join(per[label]['archs'])}): "
-            f"err {err:.3g}, "
+        log(f"[kernels] flash_attention {label} (H {H} over KV {KV}, hd {hd}, "
+            f"{'causal' if causal else 'unmasked'}, window {window}, Sq {Sq}, Sk {Sk}; the "
+            f"shape of {', '.join(per[label]['archs'])}): err {err:.3g}, "
             f"{ms:.4f} ms (plain {plain_ms:.3f}, SDPA {library_ms:.4f} by {backend}, "
             f"bound {bound_ms:.4f} by {bound_by}); {bound_ms / ms:.1%} of the bound, "
             f"{ms / library_ms:.2f}x SDPA's time")
@@ -591,7 +716,7 @@ def phase_kernels(torch, ptxas_served):
     n_global = sum(kind == "global" for kind in cfg.layer_kinds)
     per_prefill = {key: n_global * per["global"][key] + n_local * per["local"][key]
                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    by_arch = per_model(get_config, per, SERVED_ON_K1, MOE_SERVE_CUTS)
+    by_arch = per_model(get_config, per, SERVED_ON_K1, SERVE_CUTS)
     for arch, t in by_arch.items():
         log(f"[kernels] flash_attention per {arch} prefill ({t['launches']} launches): "
             f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f}, plain {t['plain_ms']:.3f}, SDPA "
@@ -611,6 +736,7 @@ def phase_kernels(torch, ptxas_served):
         "bf16_sweep_max_abs_err": max(sweep_err["bfloat16"], wide_err),
         "ptxas_bf16_hd256": ptxas_served.get("hd 256"),
         "ptxas_bf16_hd128": ptxas_served.get("hd 128"),
+        "ptxas_bf16_hd64": ptxas_served.get("hd 64"),
         "per_launch": per, "per_prefill_by_arch": by_arch,
     }
 
@@ -761,25 +887,26 @@ def phase_kernels_flash_bwd(torch, ptxas_bwd):
 
     cfg = get_config(ARCH)
     per = {}
-    for label, c, window in k1_shapes(get_config):
-        G = c.num_heads // c.num_kv_heads
-        BKV = TRAIN_BATCH * c.num_kv_heads
-        shape = (c.head_dim, BKV, G, TRAIN_SEQ, TRAIN_SEQ)
-        errs = {dt: check(*inputs(*shape, getattr(torch, dt)), True, window,
+    for label, c, key in k1_shapes(get_config):
+        H, KV, hd, window, causal, Sq, Sk = key
+        shape = (hd, TRAIN_BATCH * KV, H // KV, Sq, Sk)
+        errs = {dt: check(*inputs(*shape, getattr(torch, dt)), causal, window,
                           f"training shape {label} {dt}") for dt in ("bfloat16", "float32")}
         for dt, e in errs.items():
             worst[dt] = max(worst[dt], e)
         q, k, v, do = inputs(*shape, torch.bfloat16)
-        o, lse = flash_attention_fwd(q, k, v, causal=True, window=window, return_lse=True)
-        run = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True,  # noqa: E731
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+        run = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal,  # noqa: E731
                                           window=window)
-        entry = {"window": window, "heads": c.num_heads, "kv_heads": c.num_kv_heads,
-                 "head_dim": c.head_dim, "archs": k1_shape_archs(get_config, c, window),
-                 "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "max_rel_err": errs}
-        if label in ("global", f"{RG_ARCH} local", f"{QWEN} global", f"{DBRX} global"):
+        entry = {"window": window, "heads": H, "kv_heads": KV, "head_dim": hd,
+                 "causal": causal, "sq": Sq, "sk": Sk, "archs": k1_shape_archs(get_config, key),
+                 "batch": TRAIN_BATCH, "max_rel_err": errs}
+        if label in ("global", f"{RG_ARCH} local", f"{QWEN} global", f"{DBRX} global",
+                     f"{LLAMA} cross"):
             # no atomics, and the G split's partials are summed in a fixed
             # order (recurrentgemma; dbrx, where the split is a divisor of
-            # 6): every call gives the same bits
+            # 6; llama's cross layer, unmasked over 1601 keys, ragged against
+            # the 64-key tile): every call gives the same bits
             outs = [run() for _ in range(20)]
             torch.cuda.synchronize()
             if not all(all(torch.equal(a, b) for a, b in zip(x, outs[0])) for x in outs):
@@ -788,30 +915,30 @@ def phase_kernels_flash_bwd(torch, ptxas_bwd):
             log(f"[kernels] flash_attention_bwd {label}: 20 back-to-back calls bit-equal")
         ms = cuda_ms(torch, run)
         plain_ms = cuda_ms(torch, lambda: ref.flash_attention_bwd_oracle(
-            q, k, v, o, lse, do, causal=True, window=window), reps=5)
+            q, k, v, o, lse, do, causal=causal, window=window), reps=5)
         # yardstick only: the backward of one PyTorch SDPA call on the same inputs
-        q4, k4, v4 = (x.view(TRAIN_BATCH, -1, TRAIN_SEQ, c.head_dim).detach().requires_grad_()
+        q4, k4, v4 = (x.view(TRAIN_BATCH, -1, x.shape[1], hd).detach().requires_grad_()
                       for x in (q, k, v))
         do4 = do.view(q4.shape)
         mask = None
-        if 0 < window < TRAIN_SEQ:
-            pos = torch.arange(TRAIN_SEQ, device="cuda")
+        if 0 < window < Sq:
+            pos = torch.arange(Sq, device="cuda")
             d = pos[:, None] - pos[None, :]
             mask = (d >= 0) & (d < window)
         out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
-                                              is_causal=mask is None, enable_gqa=True)
+                                              is_causal=causal and mask is None, enable_gqa=True)
         library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
             out4, (q4, k4, v4), do4, retain_graph=True))
-        backend = sdpa_backend(torch, q4, k4, v4, mask, mask is None)
+        backend = sdpa_backend(torch, q4, k4, v4, mask, causal and mask is None)
         del out4, q4, k4, v4
-        bound_ms, bound_by = attention_bwd_bound_ms(q, k, True, window)
+        bound_ms, bound_by = attention_bwd_bound_ms(q, k, causal, window)
         entry.update({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                       "sdpa_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by,
                       "bound_share": bound_ms / ms, "vs_library": ms / library_ms})
         per[label] = entry
-        log(f"[kernels] flash_attention_bwd {label} (B {TRAIN_BATCH}, S {TRAIN_SEQ}, H "
-            f"{c.num_heads} over KV {c.num_kv_heads}, hd {c.head_dim}, window {window}; the "
-            f"shape of {', '.join(entry['archs'])}): err bf16 {errs['bfloat16']:.3g}, f32 "
+        log(f"[kernels] flash_attention_bwd {label} (B {TRAIN_BATCH}, H {H} over KV {KV}, hd "
+            f"{hd}, {'causal' if causal else 'unmasked'}, window {window}, Sq {Sq}, Sk {Sk}; "
+            f"the shape of {', '.join(entry['archs'])}): err bf16 {errs['bfloat16']:.3g}, f32 "
             f"{errs['float32']:.3g}; "
             f"{ms:.4f} ms (plain {plain_ms:.3f}, SDPA backward {library_ms:.4f} by "
             f"{backend}, bound {bound_ms:.4f} by {bound_by}); {bound_ms / ms:.1%} of the "
@@ -822,7 +949,8 @@ def phase_kernels_flash_bwd(torch, ptxas_bwd):
     per_step = {key: n_global * per["global"][key] + n_local * per["local"][key]
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     by_arch = per_model(get_config, per, SERVED_ON_K1,
-                        {RG_ARCH: RG_TRAIN_CUT, **DENSE_TRAIN_CUTS, **MOE_TRAIN_CUTS})
+                        {RG_ARCH: RG_TRAIN_CUT, **DENSE_TRAIN_CUTS, **MOE_TRAIN_CUTS,
+                         **CROSS_TRAIN_CUTS})
     for name, t in by_arch.items():
         log(f"[kernels] flash_attention_bwd per {name} train step ({t['launches']} launches): "
             f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f}, plain {t['plain_ms']:.3f}, SDPA "
@@ -1480,10 +1608,25 @@ def recorded_layers(resid=True):
         moe.route, model_mod.apply_layer = route, apply_layer
 
 
+def bare_path(what):
+    """Fail unless ``moe.route`` and ``model.apply_layer`` are the port's own
+    functions: no recording or pinning wrapper is in place."""
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe
+    for mod, name in ((moe, "route"), (model_mod, "apply_layer")):
+        fn = getattr(mod, name)
+        if fn.__module__ != mod.__name__ or fn.__name__ != name:
+            fail(f"{what}: {mod.__name__}.{name} is {fn.__module__}.{fn.__qualname__}, a "
+                 "wrapper, during a timed run")
+
+
 def phase_serve(torch, arch, per_prefill):
-    """Serve `arch` (cut as MOE_SERVE_CUTS says); `per_prefill` names each
+    """Serve `arch` (cut as SERVE_CUTS says); `per_prefill` names each
     kernel's launches in one prefill (every other kernel must not launch).
-    Returns the launches."""
+    The timed run is the bare path; the MoE routings that the decode check
+    reads come from a second, untimed run of the same prefill and decode,
+    fed the same tokens. A cross-attention arch takes bf16 stub memory and
+    has every gate set to GATE. Returns the launches."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import Model
     from repro_torch.train.serve_step import (make_decode_step,
@@ -1491,58 +1634,74 @@ def phase_serve(torch, arch, per_prefill):
 
     counters = _launch_counters()
     want = {name: per_prefill.get(name, 0) for name in counters}
-    cfg = get_config(arch).replace(**MOE_SERVE_CUTS.get(arch, {}))
+    cfg = serve_config(get_config, arch)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()         # left by earlier phases
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda", seed=SEED)
+    n_gates = set_gates(torch, model)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[serve] {cfg.name}: {n_params / 1e9:.3f}B params (config says "
-        f"{cfg.param_count() / 1e9:.3f}B), seeded init {time.perf_counter() - t0:.1f}s")
+        f"{cfg.param_count() / 1e9:.3f}B), seeded init {time.perf_counter() - t0:.1f}s"
+        + (f"; every gate ({n_gates}) set to {GATE}" if n_gates else ""))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
                            device="cuda")
+    memory = stub_memory(torch, cfg, SEED + 2) if model.memory_len() else None
+    if memory is not None:
+        log(f"[serve] {cfg.name}: bf16 stub memory {tuple(memory.shape)} (std 1, seed "
+            f"{SEED + 2})")
     cache_len = PROMPT + STEPS
     prefill = make_prefill_step(model, cache_len)
     decode = make_decode_step(model)
 
-    def run():
-        """prefill + STEPS greedy decode steps; returns timings, logits and
-        the MoE routings of the prefill and of each decode step."""
+    def run(feed=None, record=False):
+        """prefill + STEPS decode steps, greedy or fed the tokens `feed`;
+        returns timings, launches after the prefill, finiteness, the tokens,
+        the decode logits, and with `record` the MoE routings of the prefill
+        and of each decode step and the prefill's residual stream (each call
+        inside recorded_layers). Without `record` it is the bare path,
+        checked before and after."""
+        rec = recorded_layers if record else (lambda resid: contextlib.nullcontext(([], [])))
+        if not record:
+            bare_path(f"{arch} serving")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with recorded_layers(resid=False) as (pre_routes, _):
-            logits, cache = prefill(prompt)
+        with rec(resid=record) as (pre_routes, resid):
+            logits, cache = prefill(prompt, memory)
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
         finite = torch.isfinite(logits).all()
-        tok = sample_token(logits)
+        tok = sample_token(logits) if feed is None else feed[0]
         toks, dec_logits, dec_routes = [tok], [], []
         t0 = time.perf_counter()
-        for _ in range(STEPS):
-            with recorded_layers(resid=False) as (routes, _):
+        for j in range(STEPS):
+            with rec(resid=False) as (routes, _):
                 logits, cache = decode(tok, cache)
             dec_routes.append(routes)
             finite &= torch.isfinite(logits).all()
             dec_logits.append(logits)
-            tok = sample_token(logits)
+            tok = sample_token(logits) if feed is None else feed[j + 1]
             toks.append(tok)
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
+        if not record:
+            bare_path(f"{arch} serving")
         return (t_prefill, t_decode, launches, bool(finite), toks, dec_logits,
-                (pre_routes, dec_routes))
+                (pre_routes, dec_routes), resid)
 
     with torch.inference_mode():
-        with recorded_layers() as (routes, resid):  # warm-up: libraries, allocator
-            run()
-        log_moe_prefill(torch, cfg, routes[:cfg.num_layers], resid)
+        # warm-up (libraries, allocator), with the prefill's routings and
+        # residual stream recorded
+        *_, (routes, _), resid = run(record=True)
+        log_moe_prefill(torch, cfg, routes, resid)
         del routes, resid
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():                # the main path's run starts here
             fn.launches = 0
-        t_prefill, t_decode, launches, finite, toks, dec_logits, served_routes = run()
+        t_prefill, t_decode, launches, finite, toks, dec_logits, _, _ = run()
         total_launches = {name: fn.launches for name, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated()
 
@@ -1553,11 +1712,26 @@ def phase_serve(torch, arch, per_prefill):
                      "prefill and none in decode")
         if not finite:
             fail(f"{arch}: non-finite logits in prefill or decode")
+        served_routes = ()
+        if cfg.num_experts:
+            # the routings of the timed run, from the same prefill and decode
+            # fed its tokens; timed too, to show what the recording costs
+            _, t_rec, _, _, _, rec_logits, served_routes, _ = run(feed=toks, record=True)
+            same = all(torch.equal(a, b) for a, b in zip(rec_logits, dec_logits))
+            log(f"[serve] {arch} decode, in one process: bare {t_decode * 1e3 / STEPS:.3f} "
+                f"ms/step (timed run), with every routing recorded {t_rec * 1e3 / STEPS:.3f} "
+                f"ms/step (untimed run); its logits "
+                + ("bit-equal to the timed run's" if same else "differ from the timed run's"))
         # decode logits at positions 2048 and 2048+STEPS-1 against a full
         # forward over all tokens up to them (last-position logits of
         # prefill); for MoE, with where the two routed differently
         seq = torch.cat([prompt] + toks, dim=1)
-        checks = decode_vs_forward(model, seq, dec_logits, *served_routes)
+        checks = decode_vs_forward(model, seq, dec_logits, memory, *served_routes)
+        if memory is not None:
+            a, _ = prefill(prompt, memory)
+            check_memory_moves_logits(torch, arch, a, prefill(prompt, stub_memory(
+                torch, cfg, SEED + 3))[0], F32_DECODE_RTOL if arch in CROSS_F32_REPLAY
+                else DECODE_RTOL)
     bf16_ok = all(err <= DECODE_RTOL * scale for err, scale, *_ in checks.values())
     gated = arch not in F32_REPLAY
     log(f"[serve] {arch} bf16 decode vs full forward"
@@ -1583,28 +1757,48 @@ def phase_serve(torch, arch, per_prefill):
     log(f"[serve] {arch} sample output ids: {torch.cat(toks, 1)[0, :16].tolist()}")
     with torch.inference_mode():
         profile_serving(torch, prefill, decode, sample_token, prompt, min(8, STEPS),
-                        arch)
-    rtol, label = DECODE_RTOL, "bf16 "
-    if not (gated and bf16_ok):
+                        arch, memory)
+    held = [(checks, DECODE_RTOL, "bf16 ")] if gated else []
+    if not (gated and bf16_ok) or arch in CROSS_F32_REPLAY:
         del model, prefill, decode             # room for an f32 copy of the weights
         torch.cuda.empty_cache()
         rcfg = replay_config(arch, cfg)
-        what = "" if rcfg is cfg else (f" ({rcfg.name}, capacity factor "
-                                       f"{rcfg.capacity_factor:g}: nothing drops)")
+        what = "" if rcfg is cfg else f" ({rcfg.name}" + (
+            f", capacity factor {rcfg.capacity_factor:g}: nothing drops)"
+            if rcfg.num_experts else ")")
+        replay_gated = not gated or arch in CROSS_F32_REPLAY
         with torch.inference_mode():
-            replay = f32_replay(torch, rcfg, seq, toks, torch.bfloat16)
+            replay = f32_replay(torch, rcfg, seq, toks, torch.bfloat16, memory)
             log(f"[serve] {arch} f32 weights{what}, bf16 caches: decode vs full forward "
                 "(not gated): " + _fmt_checks(replay))
-            replay = f32_replay(torch, rcfg, seq, toks, torch.float32)
+            replay = f32_replay(torch, rcfg, seq, toks, torch.float32, memory,
+                                liveness=arch in CROSS_F32_REPLAY)
         log(f"[serve] {arch} f32 weights{what}, f32 caches: decode vs full forward"
-            + (" (not gated)" if gated else "") + ": " + _fmt_checks(replay))
-        if not gated:
-            checks, rtol, label = replay, F32_DECODE_RTOL, "f32 weights, f32 caches: "
-    for pos, (err, scale, *_) in checks.items():
-        if not err <= rtol * scale:
-            fail(f"{arch}: {label}decode at position {pos} vs full forward: max "
-                 f"abs err {err:.4g} > {rtol} x max |logit| {scale:.4g}")
+            + ("" if replay_gated else " (not gated)") + ": " + _fmt_checks(replay))
+        if replay_gated:
+            held.append((replay, F32_DECODE_RTOL, "f32 weights, f32 caches: "))
+    for checks, rtol, label in held:
+        for pos, (err, scale, *_) in checks.items():
+            if not err <= rtol * scale:
+                fail(f"{arch}: {label}decode at position {pos} vs full forward: max "
+                     f"abs err {err:.4g} > {rtol} x max |logit| {scale:.4g}")
     return launches
+
+
+def check_memory_moves_logits(torch, what, a, b, rtol):
+    """Liveness of the cross path: the prefill's last logits `b` with the
+    memory replaced by other noise (seed SEED + 3) must differ from the
+    served ones `a` by more than `rtol` x max |logit|, the tolerance of the
+    tightest rule that holds the decode (CROSS_F32_REPLAY); with a gate at
+    zero they do not differ at all, and a wrong cross path passes every
+    other check."""
+    diff, scale = (a - b).abs().max().item(), a.abs().max().item()
+    log(f"[serve] {what} liveness: the prefill's logits with other stub memory (seed "
+        f"{SEED + 3}) differ by max abs {diff:.4g}, {diff / scale:.4g} x max |logit| "
+        f"{scale:.4g} (must exceed {rtol})")
+    if not diff > rtol * scale:
+        fail(f"{what}: the logits do not depend on the memory: max abs diff {diff:.4g} <= "
+             f"{rtol} x max |logit| {scale:.4g}")
 
 
 def log_moe_prefill(torch, cfg, routes, resid):
@@ -1676,17 +1870,17 @@ def same_routing_rows(checks):
             if not any(r[key][b] for key in ROUTING_KEYS)]
 
 
-def decode_vs_forward(model, seq, dec_logits, pre_routes=None, dec_routes=None):
+def decode_vs_forward(model, seq, dec_logits, memory=None, pre_routes=None, dec_routes=None):
     """{position: (max abs err, max |logit|[, routing info])} of the decode
     logits at positions PROMPT and PROMPT+STEPS-1 against a full forward of
-    `model` over seq up to them; with the MoE routings of the prefill and
-    of each decode step, also _routing_diffs' counts and each row's max abs
-    err."""
+    `model` over seq up to them (with the served `memory`); with the MoE
+    routings of the prefill and of each decode step, also _routing_diffs'
+    counts and each row's max abs err."""
     checks = {}
     for step in (0, STEPS - 1):
         n = PROMPT + step + 1
         with recorded_layers(resid=False) as (full_routes, _):
-            full, _ = model.prefill(seq[:, :n], n)
+            full, _ = model.prefill(seq[:, :n], n, memory=memory)
         err = (dec_logits[step] - full).abs().amax(-1)
         checks[n - 1] = (err.max().item(), full.abs().max().item())
         if dec_routes and dec_routes[step]:
@@ -1695,11 +1889,13 @@ def decode_vs_forward(model, seq, dec_logits, pre_routes=None, dec_routes=None):
     return checks
 
 
-def f32_replay(torch, cfg, seq, toks, cache_dtype):
+def f32_replay(torch, cfg, seq, toks, cache_dtype, memory=None, liveness=False):
     """decode_vs_forward on an f32 copy of the weights of `cfg` (the served
-    config, or replay_config's cut of it), fed the served run's tokens, with
-    every decode cache (the SSD and RG-LRU conv histories, the attention
-    k/v) kept in `cache_dtype`, and each decode step's routing recorded."""
+    config, or replay_config's cut of it, gates at GATE), fed the served
+    run's tokens and memory, with every decode cache (the SSD and RG-LRU
+    conv histories, the attention k/v) kept in `cache_dtype`, and each
+    decode step's routing recorded; with `liveness`, the replay's prefill
+    logits must move with the memory by more than F32_DECODE_RTOL."""
     from repro_torch.models import Model, attention, rglru, ssm
     slots = ((ssm, "CACHE_CONV_DTYPE"), (rglru, "CACHE_CONV_DTYPE"),
              (attention, "CACHE_DTYPE"))
@@ -1708,15 +1904,20 @@ def f32_replay(torch, cfg, seq, toks, cache_dtype):
         setattr(mod, name, cache_dtype)
     try:
         model = Model(cfg, device="cuda", seed=SEED).float()
+        set_gates(torch, model)
         with recorded_layers(resid=False) as (pre_routes, _):
-            logits, cache = model.prefill(seq[:, :PROMPT], PROMPT + STEPS)
+            logits, cache = model.prefill(seq[:, :PROMPT], PROMPT + STEPS, memory=memory)
+        if liveness:
+            check_memory_moves_logits(torch, f"{cfg.name} f32", logits, model.prefill(
+                seq[:, :PROMPT], PROMPT, memory=stub_memory(torch, cfg, SEED + 3))[0],
+                F32_DECODE_RTOL)
         replay, routes = [], []
         for tok in toks[:-1]:
             with recorded_layers(resid=False) as (r, _):
                 logits, cache = model.decode_step(tok, cache)
             replay.append(logits)
             routes.append(r)
-        return decode_vs_forward(model, seq, replay, pre_routes, routes)
+        return decode_vs_forward(model, seq, replay, memory, pre_routes, routes)
     finally:
         for (mod, name), value in zip(slots, saved):
             setattr(mod, name, value)
@@ -1819,12 +2020,12 @@ def log_window(arch, what, wall, b, n, named):
     return {k: v / 1e3 for k, v in b.items()}
 
 
-def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch):
-    """Where the device time goes: torch.profiler over one prefill and over
-    `steps` decode steps; kernel time by bucket, the five largest kernels of
-    the "other" bucket and every kernel of the buckets in NAMED_BUCKETS by
-    name, and kernel time over the window's wall time (the device's busy
-    share; the rest is idle)."""
+def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch, memory=None):
+    """Where the device time goes: torch.profiler over one prefill (with the
+    served `memory`) and over `steps` decode steps; kernel time by bucket,
+    the five largest kernels of the "other" bucket and every kernel of the
+    buckets in NAMED_BUCKETS by name, and kernel time over the window's wall
+    time (the device's busy share; the rest is idle)."""
 
     def decode_steps(cache, tok):
         for _ in range(steps):
@@ -1832,7 +2033,7 @@ def profile_serving(torch, prefill, decode, sample_token, prompt, steps, arch):
             tok = sample_token(logits)
         return cache
 
-    (logits, cache), *prefill_window = profile_window(torch, lambda: prefill(prompt))
+    (logits, cache), *prefill_window = profile_window(torch, lambda: prefill(prompt, memory))
     _, *decode_window = profile_window(torch, lambda: decode_steps(cache, sample_token(logits)))
     for what, window in (("prefill", prefill_window), (f"decode x{steps}", decode_window)):
         log_window(arch, what, *window)
@@ -1868,7 +2069,7 @@ MOE_FD_STEP = 1e-5
 def _loss64(torch, model, batch):
     """Model.loss's total (CE + 1e-4 z-loss + 0.01 aux) reduced in f64 from
     the model's f32 logits and its f32 MoE aux loss (0 without experts)."""
-    logits, aux = model.apply(batch["tokens"], return_aux=True)
+    logits, aux = model.apply(batch["tokens"], memory=batch.get("memory"), return_aux=True)
     logits = logits.double()
     labels = batch["labels"]
     lse = torch.logsumexp(logits, dim=-1)
@@ -1877,6 +2078,15 @@ def _loss64(torch, model, batch):
     n = mask.sum().clamp_min(1.0)
     return ((nll * mask).sum() / n + 1e-4 * (lse.square() * mask).sum() / n
             + 0.01 * aux.double()).item()
+
+
+def _dot64(a, b):
+    """sum(a * b) over two tensors of one shape, in f64, a slice of 2^24
+    elements at a time: a whole-leaf f64 copy of llama-3.2-vision-90b's
+    1.05 B-parameter embedding is 8.4 GB."""
+    n = 1 << 24
+    return sum((x.double() * y.double()).sum()
+               for x, y in zip(a.reshape(-1).split(n), b.reshape(-1).split(n)))
 
 
 def _unit_direction(torch, params, names, g):
@@ -1895,14 +2105,15 @@ def _rglru_gate_leaf(k):
                                   for leaf in ("w_a", "b_a", "w_i", "b_i", "lam"))
 
 
-# each trained arch: by layer kind, the kernels (forward, backward) a layer of
-# that kind launches once each; the training config's cut, if any; for an
-# arch with a gradient check its two-layer cut (superblock, repeats), the
-# leaves whose gradient reaches the loss only through those kernels, if any a
-# refill (label, the leaves to fill, the value) after which those leaves are
-# checked again, and if any a longer FD step by direction. granite-3-8b and
-# gemma3-12b repeat K1 shapes that qwen3-8b's and gemma3-4b's checks cover
-# (hd 128 over GQA 4; hd 256, windowed and global), so they have none
+# each trained arch: by layer kind (K1_KINDS for K1's), the kernels (forward,
+# backward) a layer of that kind launches once each; the training config's
+# cut, if any; for an arch with a gradient check its two-layer cut
+# (superblock, repeats, and any other change), the leaves whose gradient
+# reaches the loss only through those kernels, if any a refill (label, the
+# leaves to fill, the value) after which those leaves are checked again, and
+# if any a longer FD step by direction. granite-3-8b and gemma3-12b repeat K1
+# shapes that qwen3-8b's and gemma3-4b's checks cover (hd 128 over GQA 4; hd
+# 256, windowed and global), so they have none
 _K1 = ("flash_attention", "flash_attention_bwd")
 TRAINED = {
     ARCH: {"kernels": {"local": _K1, "global": _K1},
@@ -1940,18 +2151,30 @@ TRAINED = {
               "leaves": ("MoE leaves", lambda k: ".moe." in k),
               "fd_steps": {"every leaf": MOE_FD_STEP, "MoE leaves": MOE_FD_STEP}},
     DBRX: {"kernels": {"global": _K1}, "train_cut": MOE_TRAIN_CUTS[DBRX]},
+    # the cross-attention archs' second direction is the layer they add: the
+    # encoder, the xattn sub-layers and their gates (seamless: one encoder and
+    # one decoder layer); the cross layer with its gate (llama: its training
+    # cut, global then cross)
+    SEAMLESS: {"kernels": {"global": _K1, "xattn": _K1, "enc": _K1},
+               "superblock": ("global",), "sb_repeat": 1, "grad_cut": {"encoder_layers": 1},
+               "leaves": ("encoder, xattn and gate leaves",
+                          lambda k: k.startswith("encoder.") or ".xattn." in k)},
+    LLAMA: {"kernels": {"global": _K1, "cross": _K1}, "train_cut": CROSS_TRAIN_CUTS[LLAMA],
+            "superblock": ("global", "cross"), "sb_repeat": 1,
+            "leaves": ("cross layer and gate leaves", lambda k: k.startswith("layers.1.attn."))},
 }
 
 
 def _launches_per_step(cfg, arch, counters, remat):
     """{kernel: launches} of one forward and backward of `cfg`: each layer
     kind's forward and backward kernels (TRAINED[arch]["kernels"]) once per
-    layer of the kind, and with `remat` (full) the forward again for each
-    layer of the kind in the rematted superblock repeats; 0 for the rest."""
+    layer of the kind (kind_layers: an xattn sub-layer and an encoder layer
+    count as layers), and with `remat` (full) the forward again for each
+    layer of the kind that remat recomputes; 0 for the rest."""
     want = {name: 0 for name in counters}
     for kind, (fwd, bwd) in TRAINED[arch]["kernels"].items():
-        n_layers = cfg.layer_kinds.count(kind)
-        want[fwd] += n_layers + (cfg.superblock.count(kind) * cfg.sb_repeat if remat else 0)
+        n_layers, n_rematted = kind_layers(cfg, kind)
+        want[fwd] += n_layers + (n_rematted if remat else 0)
         want[bwd] += n_layers
     return want
 
@@ -1976,12 +2199,20 @@ def phase_grad_check(torch, arch):
 
     counters = _launch_counters()
     spec = TRAINED[arch]
-    cfg = get_config(arch).replace(name=f"{arch}-2layer", num_layers=2,
-                                   superblock=spec["superblock"], sb_repeat=spec["sb_repeat"],
-                                   remainder=())
+    cfg = get_config(arch).replace(
+        name=f"{arch}-2layer", num_layers=len(spec["superblock"]) * spec["sb_repeat"],
+        superblock=spec["superblock"], sb_repeat=spec["sb_repeat"], remainder=(),
+        **spec.get("grad_cut", {}))
     model = Model(cfg, device="cuda", seed=SEED, trainable=True).float()
+    n_gates = set_gates(torch, model)
     batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                   global_batch=1), 0, device="cuda")
+    if model.memory_len():
+        # the served stub memory (std 1): at the data's 0.02 the keys of a
+        # cross layer are so small that its attention is near uniform
+        batch["memory"] = stub_memory(torch, cfg, SEED + 2, batch=1)
+        log(f"[grad] {cfg.name}: every gate ({n_gates}) set to {GATE}; bf16 stub memory "
+            f"{tuple(batch['memory'].shape)} (std 1)")
     params = dict(model.named_parameters())
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     kernel_label, kernel_leaf = spec["leaves"]
@@ -2007,15 +2238,16 @@ def phase_grad_check(torch, arch):
         got = {name: fn.launches for name, fn in counters.items()}
         if got != want:
             fail(f"gradient check {arch}: launches {got}, want {want}")
-        grads = {k: p.grad.detach().clone() for k, p in params.items()}
+        grads = {}
+        for k, p in params.items():             # taken from the model, not copied
+            grads[k], p.grad = p.grad.detach(), None
         orig = {k: p.detach().clone() for k, p in params.items()}
-        model.zero_grad(set_to_none=True)
         L0 = loss.item()
         for label, names in directions:
             v = _unit_direction(torch, params, names, g)
-            gv = sum((grads[k].double() * v[k].double()).sum() for k in names).item()
+            gv = sum(_dot64(grads[k], v[k]) for k in names).item()
             step = spec.get("fd_steps", {}).get(label, FD_STEP)
-            eps = step * sum(orig[k].double().square().sum() for k in names).sqrt().item()
+            eps = step * sum(_dot64(orig[k], orig[k]) for k in names).sqrt().item()
 
             flips = []
 
@@ -2024,7 +2256,7 @@ def phase_grad_check(torch, arch):
                 with torch.no_grad():
                     for sign in (1, -1):
                         for k in names:
-                            params[k].copy_(orig[k] + sign * e * v[k])
+                            params[k].copy_(orig[k]).add_(v[k], alpha=sign * e)
                         with pinned_routing(routes0) as natural:
                             side[sign] = _loss64(torch, model, batch)
                         if len(natural) != len(routes0):
@@ -2145,6 +2377,7 @@ def phase_train(torch, card, arch):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda", seed=SEED, trainable=True)
+    n_gates = set_gates(torch, model)
     par = ParallelConfig(remat="full", microbatches=1)
     step_fn = make_train_step(model, OptConfig(lr=1e-4, warmup_steps=2, total_steps=100), par)
     state = init_train_state(model)
@@ -2152,9 +2385,13 @@ def phase_train(torch, card, arch):
     state_bytes = torch.cuda.memory_allocated()
     log(f"[train] {cfg.name}: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params, "
         f"state (bf16 params, f32 mu and nu) {state_bytes / 1e9:.2f} GB, made in "
-        f"{time.perf_counter() - t0:.1f}s")
+        f"{time.perf_counter() - t0:.1f}s"
+        + (f"; every gate ({n_gates}) set to {GATE}, the data's stub memory "
+           f"({model.memory_len()} x {cfg.d_model}, bf16 x 0.02) in every batch"
+           if n_gates else ""))
     it = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                                 global_batch=TRAIN_BATCH), device="cuda")
+                                 global_batch=TRAIN_BATCH, memory_len=model.memory_len(),
+                                 d_model=cfg.d_model), device="cuda")
     for fn in counters.values():                   # the main path's run starts here
         fn.launches = 0
     losses, gnorms, auxes, times = [], [], [], []
@@ -2241,18 +2478,22 @@ def main(argv=None):
         return 0
     from repro_torch.configs.registry import get_config
 
-    def count(arch, *kinds):
-        return sum(kind in kinds for kind in get_config(arch).layer_kinds)
+    def count(arch, kind):
+        return kind_layers(get_config(arch), kind)[0]
+
+    def k1_count(arch):
+        """K1's launches in one prefill of `arch` as the serve phase cuts it."""
+        return len(k1_layers(serve_config(get_config, arch)))
 
     by_arch = {ARCH: timed(f"serve {ARCH}", phase_serve, torch, ARCH, {
-        "flash_attention": count(ARCH, "global", "local")})}
+        "flash_attention": k1_count(ARCH)})}
     torch.cuda.empty_cache()
     by_arch[SSM_ARCH] = timed(f"serve {SSM_ARCH}", phase_serve, torch, SSM_ARCH,
                               {"ssd": count(SSM_ARCH, "ssd")})
     torch.cuda.empty_cache()
     by_arch[RG_ARCH] = timed(f"serve {RG_ARCH}", phase_serve, torch, RG_ARCH, {
         "rglru_scan": count(RG_ARCH, "rglru"),
-        "flash_attention": count(RG_ARCH, "local")})
+        "flash_attention": k1_count(RG_ARCH)})
     torch.cuda.empty_cache()
     grad = timed(f"grad {ARCH}", phase_grad_check, torch, ARCH)
     train = timed(f"train {ARCH}", phase_train, torch, card, ARCH)
@@ -2264,7 +2505,7 @@ def main(argv=None):
     # the other dense archs on K1 alone: 36, 40 and 48 launches a prefill
     for arch in DENSE_ARCHS:
         by_arch[arch] = timed(f"serve {arch}", phase_serve, torch, arch, {
-            "flash_attention": count(arch, "global", "local")})
+            "flash_attention": k1_count(arch)})
         torch.cuda.empty_cache()
     qwen_grad = timed(f"grad {QWEN}", phase_grad_check, torch, QWEN)
     dense_train = {arch: timed(f"train {arch}", phase_train, torch, card, arch)
@@ -2272,14 +2513,25 @@ def main(argv=None):
     # the MoE archs at their serving cuts: 20 and 8 K1 launches a prefill
     for arch in MOE_ARCHS:
         by_arch[arch] = timed(f"serve {arch}", phase_serve, torch, arch, {
-            "flash_attention": MOE_SERVE_CUTS[arch]["num_layers"]})
+            "flash_attention": k1_count(arch)})
         torch.cuda.empty_cache()
     moe_grad = timed(f"grad {MIXTRAL}", phase_grad_check, torch, MIXTRAL)
     moe_train = {arch: timed(f"train {arch}", phase_train, torch, card, arch)
                  for arch in MOE_ARCHS}
+    # the cross-attention archs, every gate at GATE: seamless at full size (36
+    # K1 a prefill: 12 enc, 12 causal, 12 xattn) and llama at 30 layers (24
+    # causal, 6 cross); none in decode
+    for arch in CROSS_ARCHS:
+        by_arch[arch] = timed(f"serve {arch}", phase_serve, torch, arch, {
+            "flash_attention": k1_count(arch)})
+        torch.cuda.empty_cache()
+    cross_grad = {arch: timed(f"grad {arch}", phase_grad_check, torch, arch)
+                  for arch in CROSS_ARCHS}
+    cross_train = {arch: timed(f"train {arch}", phase_train, torch, card, arch)
+                   for arch in CROSS_ARCHS}
     flash["launches_by_path"] = {f"serve {a}": n["flash_attention"] for a, n in by_arch.items()
                                  if n["flash_attention"]}
-    trained_on_k1 = {ARCH: train, RG_ARCH: rg_train, **dense_train, **moe_train}
+    trained_on_k1 = {ARCH: train, RG_ARCH: rg_train, **dense_train, **moe_train, **cross_train}
     for a, t in trained_on_k1.items():
         flash["launches_by_path"][f"train {a}"] = t["launches"]["flash_attention"]
     flash["launches"] = sum(flash["launches_by_path"].values())
@@ -2289,9 +2541,12 @@ def main(argv=None):
     flash_bwd["grad_check"] = grad
     flash_bwd[f"grad_check {QWEN}"] = qwen_grad
     flash_bwd[f"grad_check {MIXTRAL}"] = moe_grad
+    for arch, g in cross_grad.items():
+        flash_bwd[f"grad_check {arch}"] = g
     flash_bwd["train"] = {k: v for k, v in train.items() if k != "launches"}
     flash_bwd["train_by_arch"] = {a: {k: v for k, v in t.items() if k != "launches"}
-                                  for a, t in {**dense_train, **moe_train}.items()}
+                                  for a, t in {**dense_train, **moe_train,
+                                               **cross_train}.items()}
     ssd["launches_by_path"] = {f"serve {SSM_ARCH}": by_arch[SSM_ARCH]["ssd"],
                                f"train {SSM_ARCH}": ssm_train["launches"]["ssd"]}
     ssd["launches"] = sum(ssd["launches_by_path"].values())

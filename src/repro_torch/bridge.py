@@ -5,9 +5,11 @@ The JAX model stacks the superblock's layers along a leading ``layers`` axis
 (``blocks/sb/slot{i}``, one entry per repeat) and keeps the remainder as
 ``blocks/rem{j}``; the port holds one ``ParamTree`` per layer. Slot i of
 repeat r becomes layer ``r * len(superblock) + i``; remainder j follows the
-stack. Every other subtree keeps its path. Inputs are nested dicts of numpy
-arrays (``jax.tree_util.tree_map(np.asarray, params)``), so this module needs
-no JAX; bf16 moves bit-exactly through a uint16 view.
+stack. The encoder of an enc-dec model is stacked the same way
+(``encoder/sb/slot0``, one entry per encoder layer) and becomes
+``encoder.layers.N``. Every other subtree keeps its path. Inputs are nested
+dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``), so
+this module needs no JAX; bf16 moves bit-exactly through a uint16 view.
 """
 from __future__ import annotations
 
@@ -43,17 +45,29 @@ def _unstack(tree, cfg):
             raise ValueError(f"two JAX leaves map to {key}")
         flat[key] = leaf
 
+    def spread(path, leaf, n, what, name):
+        """Entry r of a stacked leaf (leading axis n, cfg.<what>) to name(r)."""
+        if np.shape(leaf)[0] != n:
+            raise ValueError(f"{path}: leading axis {np.shape(leaf)[0]} != {what} {n}")
+        for r in range(n):
+            put(name(r), leaf[r])
+
     for path, leaf in _flatten(tree):
         parts = path.split(".")
-        if parts[0] != "blocks":
+        if parts[0] == "encoder":
+            if parts[1:3] == ["sb", "slot0"]:
+                spread(path, leaf, cfg.encoder_layers, "encoder_layers",
+                       lambda n: ".".join([f"encoder.layers.{n}"] + parts[3:]))
+            elif parts[1] == "final_norm":
+                put(path, leaf)
+            else:
+                raise ValueError(f"unexpected JAX encoder leaf {path}")
+        elif parts[0] != "blocks":
             put(path, leaf)
         elif parts[1] == "sb":
             i = int(parts[2][len("slot"):])
-            if np.shape(leaf)[0] != cfg.sb_repeat:
-                raise ValueError(f"{path}: leading axis {np.shape(leaf)[0]} "
-                                 f"!= sb_repeat {cfg.sb_repeat}")
-            for r in range(cfg.sb_repeat):
-                put(".".join([f"layers.{r * nsb + i}"] + parts[3:]), leaf[r])
+            spread(path, leaf, cfg.sb_repeat, "sb_repeat",
+                   lambda r: ".".join([f"layers.{r * nsb + i}"] + parts[3:]))
         elif parts[1].startswith("rem"):
             j = int(parts[1][len("rem"):])
             put(".".join([f"layers.{nsb * cfg.sb_repeat + j}"] + parts[2:]), leaf)
@@ -82,7 +96,9 @@ def from_jax_opt_state(opt_state, cfg, device=None):
 
 def from_jax_cache(tree, cfg, device=None) -> dict:
     """JAX decode cache (``Model.prefill`` / ``init_cache``) -> the port's
-    cache: {"pos": int, "layers": [per-layer cache dict, ...]}."""
+    cache: {"pos": int, "layers": [per-layer cache dict, ...]}; each layer's
+    dict keeps the JAX subtrees (``attn``, ``mixer``, an enc-dec layer's
+    ``xattn``)."""
     device = resolve_device(device)
     flat = _unstack({k: v for k, v in tree.items() if k != "pos"}, cfg)
     layers = [{} for _ in cfg.layer_kinds]

@@ -1,9 +1,9 @@
-"""Architecture registry: --arch <id> -> ModelConfig (ported archs only)."""
+"""Architecture registry: --arch <id> -> ModelConfig (all ten archs of the zoo)."""
 from __future__ import annotations
 
 from repro_torch.configs import (dbrx_132b, gemma3_4b, gemma3_12b, granite_3_8b,
-                                 mamba2_780m, mixtral_8x7b, qwen3_8b,
-                                 recurrentgemma_9b)
+                                 llama32_vision_90b, mamba2_780m, mixtral_8x7b,
+                                 qwen3_8b, recurrentgemma_9b, seamless_m4t_medium)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
@@ -15,6 +15,8 @@ _MODULES = {
     "gemma3-12b": gemma3_12b,
     "mixtral-8x7b": mixtral_8x7b,
     "dbrx-132b": dbrx_132b,
+    "llama-3.2-vision-90b": llama32_vision_90b,
+    "seamless-m4t-medium": seamless_m4t_medium,
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -3,7 +3,9 @@
   python -m repro_torch.launch.serve --arch gemma3-4b --batch 4 --steps 32
   python -m repro_torch.launch.serve --arch gemma3-4b --smoke --device cpu
 
-Weights are random, drawn from ``--seed``; the prompt from ``--seed + 1``.
+Weights are random, drawn from ``--seed``; the prompt from ``--seed + 1``;
+for an arch with cross-attention (llama-3.2-vision-90b, seamless-m4t-medium)
+the stub frontend's memory, standard normals in bf16, from ``--seed + 2``.
 """
 from __future__ import annotations
 
@@ -43,6 +45,11 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
+    memory = None
+    if model.memory_len():
+        mem_gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+        memory = torch.randn(args.batch, model.memory_len(), cfg.d_model,
+                             generator=mem_gen, device=device).to(torch.bfloat16)
 
     prefill = make_prefill_step(model, cache_len)
     decode = make_decode_step(model)
@@ -50,7 +57,7 @@ def main(argv=None):
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = prefill(prompt)
+        logits, cache = prefill(prompt, memory)
         _sync(device)
         t_prefill = time.perf_counter() - t0
         print(f"[serve] prefill {args.batch}x{args.prompt_len} on {device}: "

@@ -61,6 +61,9 @@ class ParamTree(nn.Module):
     def __getitem__(self, key):
         return getattr(self, key)
 
+    def __contains__(self, key):
+        return key in self._parameters or key in self._modules
+
 
 # ---------------------------------------------------------------------------
 # functional layers

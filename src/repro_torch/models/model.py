@@ -1,26 +1,33 @@
 """Model assembly and serving API (counterpart of ``repro/models/model.py``).
 
-Structure: embed -> layers (superblock x repeat + remainder, unrolled into
-one list) -> final norm -> unembed. Each layer is a residual block:
-ln -> mixer (attention global | local, the Mamba2 SSD block or the RG-LRU
-block) [-> ln -> gated MLP, or the MoE layer when the config has experts,
-when d_ff > 0].
+Structure: embed -> [encoder (enc-dec only)] -> layers (superblock x repeat
++ remainder, unrolled into one list) -> final norm -> unembed. Each layer is
+a residual block: ln -> mixer (attention global | local | cross, the Mamba2
+SSD block or the RG-LRU block) [-> ln_x -> gated cross-attention to the
+encoder's output, in an enc-dec model's global layers] [-> ln -> gated MLP,
+or the MoE layer when the config has experts (a cross layer keeps the MLP),
+when d_ff > 0]. The encoder of an enc-dec model is ``encoder_layers``
+bidirectional ``enc`` layers over the stub frontend's memory, then a final
+norm; a vlm's cross layers attend to the memory itself.
 
 Parameters keep the JAX package's layouts and nesting; the JAX stack of
 superblock layers (leading ``layers`` axis) becomes one ``ParamTree`` per
 layer, layer r*len(superblock)+i for slot i of repeat r, then the
-remainder. ``bridge.from_jax_params`` maps one onto the other.
+remainder; the JAX encoder stack (``encoder.sb.slot0``) becomes
+``encoder.layers.N``. ``bridge.from_jax_params`` maps one onto the other.
 
 API: apply (full-sequence logits, and on request the MoE aux loss summed
 over the layers), loss (next-token CE + z-loss + 0.01 aux), prefill
 (last-position logits + decode cache), init_cache, decode_step (one token),
-memory_len.
+memory_len. An arch with ``memory_len() > 0`` takes the stub frontend's
+memory (B, memory_len, D) in apply, loss (``batch["memory"]``) and prefill;
+decode reads the cross layers' k/v from the cache prefill wrote.
 
-Under autograd each repeat of the superblock can be rematerialized
-(``Ctx.remat``, the counterpart of ``_maybe_remat``): ``full`` saves only
-its input and recomputes the rest in the backward; ``dots`` also saves the
-outputs of the weight products. The remainder layers are never rematted, as
-in the JAX package.
+Under autograd each repeat of the superblock, and each encoder layer, can
+be rematerialized (``Ctx.remat``, the counterpart of ``_maybe_remat``):
+``full`` saves only its input and recomputes the rest in the backward;
+``dots`` also saves the outputs of the weight products. The remainder
+layers are never rematted, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -33,20 +40,14 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import CROSS_ATTN, ENC_ATTN, RGLRU, SSD, ModelConfig
+from repro_torch.configs.base import (ATTENTION_KINDS, CROSS_ATTN, ENC_ATTN,
+                                      GLOBAL_ATTN, RGLRU, SSD, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, rglru, ssm
 from repro_torch.models.layers import (ParamSpec, ParamTree, embed_apply,
                                        embed_specs, mlp_apply, mlp_specs,
                                        rms_norm, rms_norm_specs, unembed_apply)
-
-_NOT_PORTED = {
-    CROSS_ATTN: "cross-attention (ROADMAP queue 1, item 4)",
-    ENC_ATTN: "encoder attention (ROADMAP queue 1, item 4)",
-    "encdec": "encoder-decoder (ROADMAP queue 1, item 4)",
-}
-
 
 class _Mixer(NamedTuple):
     """The functions of a recurrent mixer block."""
@@ -78,24 +79,21 @@ class Ctx:
 # per-layer specs / apply
 # ---------------------------------------------------------------------------
 
-def _check_ported(cfg: ModelConfig, kind: str):
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"{_NOT_PORTED[kind]} is not ported yet")
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{_NOT_PORTED['encdec']} is not ported yet")
-
-
 def layer_specs(cfg: ModelConfig, kind: str):
-    _check_ported(cfg, kind)
     d = cfg.d_model
     s: dict = {"ln1": rms_norm_specs(d)}
     if kind in _MIXERS:
         s["mixer"] = _MIXERS[kind].specs(cfg)
+    elif kind in ATTENTION_KINDS:
+        s["attn"] = attn.attention_specs(cfg, cross=kind == CROSS_ATTN)
     else:
-        s["attn"] = attn.attention_specs(cfg)
+        raise ValueError(f"unknown layer kind {kind!r}")
+    if cfg.is_encdec and kind == GLOBAL_ATTN:
+        s["ln_x"] = rms_norm_specs(d)
+        s["xattn"] = attn.attention_specs(cfg, cross=True)
     if cfg.d_ff:
         s["ln2"] = rms_norm_specs(d)
-        if cfg.num_experts:
+        if cfg.num_experts and kind != CROSS_ATTN:
             s["moe"] = moe.moe_specs(cfg)
         else:
             s["mlp"] = mlp_specs(d, cfg.d_ff)
@@ -106,31 +104,40 @@ def _feed_forward(p, h, cfg):
     """h + the gated MLP or the MoE layer of rms_norm(h). Returns (h, aux):
     the MoE aux loss, or 0.0 where the layer has no experts."""
     m_in = rms_norm(h, p["ln2"]["scale"], cfg.norm_eps)
-    if cfg.num_experts:
+    if "moe" in p:
         m, aux = moe.moe_apply(p["moe"], m_in, cfg)
         return h + m, aux
     return h + mlp_apply(p["mlp"], m_in, cfg.act), 0.0
 
 
-def apply_layer(p, h, kind, cfg, ctx, positions=None, collect_cache=False,
-                cache_len=0):
+def apply_layer(p, h, kind, cfg, ctx, memory=None, positions=None,
+                collect_cache=False, cache_len=0):
     """Residual block.  Returns (h, aux_loss, cache|None); aux_loss is 0.0
-    where the layer has no experts."""
+    where the layer has no experts. ``memory``: what a cross layer, or the
+    cross-attention sub-layer of an enc-dec global layer, attends to."""
     a_in = rms_norm(h, p["ln1"]["scale"], cfg.norm_eps)
-    cache = None
+    cache = {}
     if kind in _MIXERS:
         out, c = _MIXERS[kind].apply(p["mixer"], a_in, cfg, ctx, collect_cache)
-        if collect_cache:
-            cache = {"mixer": c}
+        cache["mixer"] = c
     else:
-        out, (k, v) = attn.attention_apply(p["attn"], a_in, cfg, ctx, kind,
-                                           positions=positions)
+        out, (k, v) = attn.attention_apply(
+            p["attn"], a_in, cfg, ctx, kind,
+            memory=memory if kind == CROSS_ATTN else None, positions=positions)
         if collect_cache:
-            cache = {"attn": attn.pack_prefill_cache(k, v, kind, cfg, cache_len)}
-    h, aux = h + out, 0.0
+            cache["attn"] = attn.pack_prefill_cache(k, v, kind, cfg, cache_len)
+    h = h + out
+    if "xattn" in p and memory is not None:
+        x_in = rms_norm(h, p["ln_x"]["scale"], cfg.norm_eps)
+        out, (xk, xv) = attn.attention_apply(p["xattn"], x_in, cfg, ctx, CROSS_ATTN,
+                                             memory=memory)
+        if collect_cache:
+            cache["xattn"] = attn.pack_prefill_cache(xk, xv, CROSS_ATTN, cfg, 0)
+        h = h + out
+    aux = 0.0
     if cfg.d_ff:
         h, aux = _feed_forward(p, h, cfg)
-    return h, aux, cache
+    return h, aux, (cache if collect_cache else None)
 
 
 def apply_layer_decode(p, h, layer_cache, pos, kind, cfg, ctx):
@@ -144,17 +151,26 @@ def apply_layer_decode(p, h, layer_cache, pos, kind, cfg, ctx):
         out, _ = attn.attention_decode(p["attn"], a_in, layer_cache["attn"],
                                        pos, cfg, ctx, kind)
     h = h + out
+    if "xattn" in p:
+        x_in = rms_norm(h, p["ln_x"]["scale"], cfg.norm_eps)
+        out, _ = attn.attention_decode(p["xattn"], x_in, layer_cache["xattn"], pos,
+                                       cfg, ctx, CROSS_ATTN)
+        h = h + out
     if cfg.d_ff:
         h, _ = _feed_forward(p, h, cfg)
     return h, layer_cache
 
 
 def init_layer_cache_specs(cfg, kind, batch, cache_len):
-    """ParamSpec tree for one layer's decode cache."""
-    _check_ported(cfg, kind)
+    """ParamSpec tree for one layer's decode cache; an enc-dec global layer
+    also keeps its cross-attention sub-layer's k/v of the encoder's output."""
     if kind in _MIXERS:
-        return {"mixer": _MIXERS[kind].cache_specs(cfg, batch)}
-    return {"attn": attn.attn_cache_specs(cfg, kind, batch, cache_len)}
+        c = {"mixer": _MIXERS[kind].cache_specs(cfg, batch)}
+    else:
+        c = {"attn": attn.attn_cache_specs(cfg, kind, batch, cache_len)}
+    if cfg.is_encdec and kind == GLOBAL_ATTN:
+        c["xattn"] = attn.attn_cache_specs(cfg, CROSS_ATTN, batch, cache_len)
+    return c
 
 
 def _materialize(specs, device):
@@ -188,6 +204,11 @@ class Model(nn.Module):
             self.unembed = tree({"table": ParamSpec((cfg.vocab_size, cfg.d_model))})
         self.layers = nn.ModuleList(tree(layer_specs(cfg, kind))
                                     for kind in cfg.layer_kinds)
+        if cfg.is_encdec:
+            self.encoder = nn.Module()
+            self.encoder.layers = nn.ModuleList(tree(layer_specs(cfg, ENC_ATTN))
+                                                for _ in range(cfg.encoder_layers))
+            self.encoder.final_norm = tree(rms_norm_specs(cfg.d_model))
 
     @property
     def device(self) -> torch.device:
@@ -196,28 +217,64 @@ class Model(nn.Module):
     def _table(self):
         return (self.embed if self.cfg.tie_embeddings else self.unembed)["table"]
 
-    def _trunk(self, tokens, ctx, collect_cache=False, cache_len=0):
-        """Embed, all layers, final norm: (h (B,S,D), per-layer caches, the
-        MoE aux loss summed over the layers (0.0 without experts))."""
+    def _check_memory(self, tokens, memory):
+        """The stub frontend's memory (B, memory_len, D) where the arch
+        attends to one, and none where it does not."""
+        n = self.memory_len()
+        if not n:
+            if memory is not None:
+                raise ValueError(f"{self.cfg.name} attends to no memory; got one")
+            return
+        if memory is None:
+            raise ValueError(f"{self.cfg.name} needs the stub frontend's memory "
+                             f"(B, {n}, {self.cfg.d_model})")
+        if memory.dim() != 3 or memory.shape[0] != tokens.shape[0] \
+                or memory.shape[2] != self.cfg.d_model:
+            raise ValueError(f"memory must be (B={tokens.shape[0]}, M, "
+                             f"{self.cfg.d_model}); got {tuple(memory.shape)}")
+
+    def encode(self, memory, ctx=None):
+        """The encoder of an enc-dec model over the stub frontend's memory
+        (B, M, D), taken in the parameters' dtype (the JAX scan carries it
+        in that dtype): its ``enc`` layers, each rematted as the decoder's
+        superblock repeats are, then its final norm."""
+        cfg, ctx = self.cfg, ctx or Ctx()
+        h = memory.to(self.embed["table"].dtype)
+
+        def layer(h, i):
+            return apply_layer(self.encoder.layers[i], h, ENC_ATTN, cfg, ctx)[0]
+
+        remat = _maybe_remat(layer, ctx) or layer
+        for i in range(cfg.encoder_layers):
+            h = remat(h, i)
+        return rms_norm(h, self.encoder.final_norm["scale"], cfg.norm_eps)
+
+    def _trunk(self, tokens, ctx, memory=None, collect_cache=False, cache_len=0):
+        """Embed, [encode,] all layers, final norm: (h (B,S,D), per-layer
+        caches, the MoE aux loss summed over the layers (0.0 without
+        experts))."""
         cfg = self.cfg
         ctx = ctx or Ctx()
+        self._check_memory(tokens, memory)
+        if cfg.is_encdec:
+            memory = self.encode(memory, ctx)
         h = embed_apply(self.embed, tokens, cfg.d_model)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         caches = []
 
         nsb = len(cfg.superblock)
 
-        def layer(i, h):
+        def layer(i, h, memory):
             h, aux, c = apply_layer(self.layers[i], h, cfg.layer_kinds[i], cfg, ctx,
-                                    positions=positions, collect_cache=collect_cache,
-                                    cache_len=cache_len)
+                                    memory=memory, positions=positions,
+                                    collect_cache=collect_cache, cache_len=cache_len)
             caches.append(c)
             return h, aux
 
-        def superblock(h, r):
+        def superblock(h, r, memory):
             aux = 0.0
             for i in range(r * nsb, (r + 1) * nsb):
-                h, a = layer(i, h)
+                h, a = layer(i, h, memory)
                 aux = aux + a
             return h, aux
 
@@ -227,39 +284,40 @@ class Model(nn.Module):
         start, aux = 0, 0.0
         if remat is not None:
             for r in range(cfg.sb_repeat):
-                h, a = remat(h, r)
+                h, a = remat(h, r, memory)
                 aux = aux + a
             start = nsb * cfg.sb_repeat
         for i in range(start, cfg.num_layers):
-            h, a = layer(i, h)
+            h, a = layer(i, h, memory)
             aux = aux + a
         return rms_norm(h, self.final_norm["scale"], cfg.norm_eps), caches, aux
 
     # -- full-sequence forward ----------------------------------------------
-    def apply(self, tokens, ctx=None, return_aux=False):
+    def apply(self, tokens, ctx=None, memory=None, return_aux=False):
         """tokens (B,S) -> logits (B,S,V) f32; with ``return_aux`` (logits,
         the MoE aux loss summed over the layers as an f32 scalar), as the
-        JAX package's apply returns them."""
-        h, _, aux = self._trunk(tokens, ctx)
+        JAX package's apply returns them. ``memory``: the stub frontend's
+        embeddings (B, memory_len(), D), which an arch with cross-attention
+        needs."""
+        h, _, aux = self._trunk(tokens, ctx, memory)
         logits = unembed_apply(self._table(), h, self.cfg.logits_soft_cap)
         if not return_aux:
             return logits
         return logits, torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
 
-    def forward(self, tokens, ctx=None):
-        return self.apply(tokens, ctx)
+    def forward(self, tokens, ctx=None, memory=None):
+        return self.apply(tokens, ctx, memory)
 
     # -- loss ----------------------------------------------------------------
     def loss(self, batch, ctx=None):
-        """batch: {tokens (B,S), labels (B,S) (-1 = pad)}. Returns
+        """batch: {tokens (B,S), labels (B,S) (-1 = pad), [memory]}. Returns
         (total, {ce, aux, zloss, ntok}): next-token CE over f32 logits, a
         1e-4 z-loss on the log normalizer, and 0.01 times the MoE aux loss
         summed over the layers (0 without experts). The label logit is
         gathered, which gives the same numbers as the JAX package's
         gather-free select-and-sum."""
-        if batch.get("memory") is not None:
-            raise NotImplementedError(f"{_NOT_PORTED['encdec']} is not ported yet")
-        logits, aux = self.apply(batch["tokens"], ctx, return_aux=True)
+        logits, aux = self.apply(batch["tokens"], ctx, batch.get("memory"),
+                                 return_aux=True)
         logits = logits.float()
         labels = batch["labels"]
         lse = torch.logsumexp(logits, dim=-1)                         # (B,S)
@@ -273,11 +331,12 @@ class Model(nn.Module):
         return total, {"ce": ce, "aux": aux, "zloss": zloss, "ntok": ntok}
 
     # -- prefill / decode -----------------------------------------------------
-    def prefill(self, tokens, cache_len, ctx=None):
+    def prefill(self, tokens, cache_len, ctx=None, memory=None):
         """Full forward + packed decode cache.  Returns (last_logits (B,V),
         cache). Only the last position is unembedded: the same numbers as
-        apply(tokens)[:, -1] without a (B,S,V) buffer."""
-        h, caches, _ = self._trunk(tokens, ctx, collect_cache=True,
+        apply(tokens)[:, -1] without a (B,S,V) buffer. The cross layers'
+        caches hold the k/v of ``memory`` (of the encoder's output)."""
+        h, caches, _ = self._trunk(tokens, ctx, memory, collect_cache=True,
                                    cache_len=cache_len)
         logits = unembed_apply(self._table(), h[:, -1:], self.cfg.logits_soft_cap)
         return logits[:, 0], {"pos": tokens.shape[1], "layers": caches}
@@ -304,22 +363,28 @@ class Model(nn.Module):
 
     def stacked_ndims(self) -> dict:
         """{parameter name: its ndim in the JAX package's layout}, where the
-        superblock's layers are stacked on a leading ``layers`` axis: one more
-        than the port's for those layers. AdamW decays leaves of ndim >= 2,
-        so in both packages the vectors of stacked layers (norm scales,
-        biases) decay and those of the remainder layers do not."""
+        superblock's layers and the encoder's are stacked on a leading
+        ``layers`` axis: one more than the port's for those layers. AdamW
+        decays leaves of ndim >= 2, so in both packages the vectors of
+        stacked layers (norm scales, biases) decay and those of the
+        remainder layers do not; a stacked cross gate has ndim 1 and does
+        not decay."""
         stacked = len(self.cfg.superblock) * self.cfg.sb_repeat
         out = {}
         for name, p in self.named_parameters():
             parts = name.split(".")
-            out[name] = p.dim() + (parts[0] == "layers" and int(parts[1]) < stacked)
+            out[name] = p.dim() + ((parts[0] == "layers" and int(parts[1]) < stacked)
+                                   or parts[:2] == ["encoder", "layers"])
         return out
 
     def memory_len(self):
-        """Length of the stub frontend memory: 0, since no ported arch has
-        cross-attention (vlm and encoder-decoder archs raise above)."""
+        """Length of the stub frontend's memory: the image tokens of a vlm,
+        the encoder's frames of an enc-dec model, else 0."""
+        if self.cfg.family == "vlm":
+            return self.cfg.context_tokens
+        if self.cfg.is_encdec:
+            return self.cfg.encoder_len
         return 0
-
 
 
 def _save_weight_products(ctx, op, *args, **kwargs):

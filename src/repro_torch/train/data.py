@@ -8,7 +8,10 @@ keeps the reference's stream law:
     with probabilities 0.55, 0.2, 0.15 and 0.1, cumulated mod vocab;
   * a copied motif: the first ``min(32, seq_len // 4)`` tokens spliced in
     again at ``seq_len // 2`` (when at least 4 long);
-  * labels are the tokens shifted by one.
+  * labels are the tokens shifted by one;
+  * an arch with cross-attention also gets the stub frontend's memory
+    (B, memory_len, d_model): standard normals in bf16 times 0.02, drawn
+    after the tokens from the same generator.
 Tests that compare the two packages feed both the reference's batches.
 """
 from __future__ import annotations
@@ -49,10 +52,8 @@ def _markov_tokens(gen, batch, seq, vocab):
 
 def make_batch(cfg: DataConfig, step: int, device=None) -> dict:
     """Pure function of (cfg, step) -> {tokens, labels} (B, seq_len) int64,
-    drawn on the CPU and moved to ``device`` (``None`` means ``cuda``)."""
-    if cfg.memory_len:
-        raise NotImplementedError("stub frontend memory (vlm/audio archs) is not "
-                                  "ported yet (ROADMAP queue 1, item 4)")
+    and with ``memory_len`` {memory} (B, memory_len, d_model) bf16, drawn on
+    the CPU and moved to ``device`` (``None`` means ``cuda``)."""
     gen = _generator(cfg.seed, step)
     toks = _markov_tokens(gen, cfg.global_batch, cfg.seq_len + 1, cfg.vocab_size)
     motif_len = min(32, cfg.seq_len // 4)
@@ -60,7 +61,11 @@ def make_batch(cfg: DataConfig, step: int, device=None) -> dict:
         mid = cfg.seq_len // 2
         toks[:, mid:mid + motif_len] = toks[:, :motif_len]
     device = resolve_device(device)
-    return {"tokens": toks[:, :-1].to(device), "labels": toks[:, 1:].to(device)}
+    batch = {"tokens": toks[:, :-1].to(device), "labels": toks[:, 1:].to(device)}
+    if cfg.memory_len:
+        mem = torch.randn(cfg.global_batch, cfg.memory_len, cfg.d_model, generator=gen)
+        batch["memory"] = (mem.to(torch.bfloat16) * 0.02).to(device)
+    return batch
 
 
 class DataIterator:

@@ -14,8 +14,8 @@ from repro_torch.models.model import Ctx, Model
 def make_prefill_step(model: Model, cache_len: int, ctx: Ctx | None = None):
     ctx = ctx or Ctx()
 
-    def prefill_step(tokens):
-        return model.prefill(tokens, cache_len, ctx)
+    def prefill_step(tokens, memory=None):
+        return model.prefill(tokens, cache_len, ctx, memory)
 
     return prefill_step
 
@@ -41,12 +41,15 @@ def sample_token(logits, temperature: float = 0.0, generator=None):
 
 
 def generate(model: Model, prompt, steps: int, cache_len: int = 0,
-             temperature: float = 0.0, generator=None, ctx: Ctx | None = None):
-    """Greedy/temperature generation: prompt (B,S) -> (B, steps) token ids."""
+             temperature: float = 0.0, generator=None, ctx: Ctx | None = None,
+             memory=None):
+    """Greedy/temperature generation: prompt (B,S) -> (B, steps) token ids.
+    ``memory``: the stub frontend's embeddings, for an arch with
+    cross-attention (``model.memory_len() > 0``)."""
     cache_len = cache_len or (prompt.shape[1] + steps)
     prefill = make_prefill_step(model, cache_len, ctx)
     decode = make_decode_step(model, ctx)
-    logits, cache = prefill(prompt)
+    logits, cache = prefill(prompt, memory)
     tok = sample_token(logits, temperature, generator)
     toks = [tok]
     for _ in range(steps - 1):

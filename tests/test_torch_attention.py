@@ -106,8 +106,30 @@ def test_attention_decode_wraps_local_ring(setup, kind):
 
 
 def test_cross_attention_not_ported(setup):
-    cfg = setup[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ta.attention_specs(cfg, cross=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ta.attention_apply({}, torch.zeros(1, 4, 64), cfg, Ctx(), "enc")
+    """The name is from before cross-attention was ported; the test now holds
+    the cross and enc kinds, which gemma3-4b's layer params run as well as
+    their own archs' (tests/test_torch_cross.py), against the JAX package:
+    the cross specs add an f32 scalar gate initialised to zero; an enc layer
+    (roped, unmasked) and a cross layer (k/v from the memory, no rope, its
+    output times tanh(gate), here 0.5) match the JAX layers in interpret
+    mode."""
+    cfg, jcfg, jp, tp = setup
+    got, want = ta.attention_specs(cfg, cross=True), ja.attention_specs(jcfg, cross=True)
+    assert set(got) == set(want) == set(ta.attention_specs(cfg)) | {"gate"}
+    assert got["gate"].shape == () and got["gate"].dtype == torch.float32
+    assert got["gate"].init == "zeros" and want["gate"].dtype == jnp.float32
+    x, mem = _x(1, 40), _x(2, 24)
+    gj = dict(jp["global"], gate=jnp.float32(0.5))
+    gt = {k: tp["global"][k] for k in ("wq", "wk", "wv", "wo", "qnorm", "knorm")}
+    gt["gate"] = torch.tensor(0.5)
+    for kind, memory in (("enc", None), ("cross", mem)):
+        oj, (kj, vj) = ja.attention_apply(
+            gj, jnp.asarray(x), jcfg, JCtx(attn_impl="interpret"), kind,
+            memory=None if memory is None else jnp.asarray(memory))
+        with torch.inference_mode():
+            ot, (kt, vt) = ta.attention_apply(
+                gt, torch.from_numpy(x), cfg, Ctx(), kind,
+                memory=None if memory is None else torch.from_numpy(memory))
+        for a, b in ((ot, oj), (kt, kj), (vt, vj)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=F32, rtol=1e-5,
+                                       err_msg=kind)

@@ -26,10 +26,12 @@ torch = pytest.importorskip("torch")
 from repro.configs.base import ParallelConfig  # noqa: E402
 from repro.configs.registry import get_config as jax_config  # noqa: E402
 from repro.models import Ctx as JCtx, build_model as jax_build  # noqa: E402
+from repro.models.model import layer_specs as jax_layer_specs  # noqa: E402
 from repro.train.serve_step import generate as jax_generate  # noqa: E402
 from repro_torch.bridge import from_jax_cache, from_jax_params  # noqa: E402
-from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.configs.registry import ARCH_NAMES, get_config  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.model import layer_specs  # noqa: E402
 from repro_torch.train.serve_step import generate  # noqa: E402
 
 S, N_DEC, CACHE_LEN = 48, 8, 64           # S > local window 32: the ring is live
@@ -220,17 +222,39 @@ def test_prefill_and_decode_match_forward():
     {"encoder_layers": 2},
 ])
 def test_unported_layers_raise(change):
+    """The name is from before cross-attention and the encoder were ported:
+    these layer patterns raised then. Each now builds, and the port's
+    layer_specs give the JAX package's key tree for every kind the config
+    uses (an enc-dec global layer with its ln_x and gated xattn, and the
+    encoder's enc layers), as does the model's parameter set."""
     cfg = get_config("gemma3-4b", smoke=True).replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg, device="cpu")
+    jcfg = jax_config("gemma3-4b", smoke=True).replace(**change)
+
+    def keys(tree):
+        return {k: keys(v) if isinstance(v, dict) else None for k, v in tree.items()}
+
+    kinds = set(cfg.layer_kinds) | ({"enc"} if cfg.is_encdec else set())
+    for kind in kinds:
+        assert keys(layer_specs(cfg, kind)) == keys(jax_layer_specs(jcfg, kind)), kind
+    if cfg.is_encdec:
+        assert {"ln_x", "xattn"} <= set(layer_specs(cfg, "global"))
+    m = Model(cfg, device="cpu")
+    n_jax = sum(x.size for x in jax.tree_util.tree_leaves(
+        jax_build(jcfg).abstract_params(), is_leaf=lambda x: hasattr(x, "shape")))
+    assert sum(p.numel() for p in m.parameters()) == n_jax
 
 
 def test_registry_lists_ported_archs():
-    for arch in ("gemma3-4b", "mamba2-780m", "recurrentgemma-9b", "qwen3-8b",
-                 "granite-3-8b", "gemma3-12b", "mixtral-8x7b", "dbrx-132b"):
+    """All ten archs of the zoo are ported; an unknown name raises KeyError
+    listing them."""
+    archs = ("gemma3-4b", "mamba2-780m", "recurrentgemma-9b", "qwen3-8b",
+             "granite-3-8b", "gemma3-12b", "mixtral-8x7b", "dbrx-132b",
+             "llama-3.2-vision-90b", "seamless-m4t-medium")
+    assert set(ARCH_NAMES) == set(archs) and len(ARCH_NAMES) == 10
+    for arch in archs:
         assert get_config(arch).param_count() == jax_config(arch).param_count()
     with pytest.raises(KeyError, match="gemma3-4b"):
-        get_config("llama-3.2-vision-90b")
+        get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("smoke", [False, True])
