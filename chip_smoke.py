@@ -163,16 +163,38 @@ a kernel's plain version:
              in every batch; for each,
              step time, tokens/s, peak memory and a profiler window of one
              step
+  7. capture every measured path traced on fake cuda tensors into a Chakra
+             graph (repro_torch.core.capture_step), in a process of its own
+             started before phase 4 and run beside phases 4-6 (lowest
+             priority, one thread, CUDA initialised with one allocation of
+             its own): each arch's prefill as phase 4 cuts it and the
+             training steps of gemma3-4b, mamba2-780m and the 14-layer
+             recurrentgemma-9b as phase 6 runs them. Gates: (i) no capture
+             changes CUDA's allocated or reserved bytes or makes an
+             allocation, and none moves a launch counter; (ii) each graph's
+             nodes of each kernel equal the launches that the path's
+             measured run counted; (iii) FlopCounterMode around one more,
+             untimed, real gemma3-4b prefill (phase 4) and train step (phase
+             6) counts the captured FLOPs exactly; each graph's roofline
+             (its FLOPs at the data sheet's bf16 dense peak, its per-op bytes
+             at HBM3's rate, the larger) is not above the measured time.
+             Then what one card cannot run: dbrx-132b's training step at all
+             40 layers and llama-3.2-vision-90b's prefill at all 100, each
+             held exactly to the line through two shallow captures (1 and 2
+             layers; 5 and 10)
 Prints the kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
+import ctypes
 import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -300,6 +322,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6
 # ~102 GB; (RG-LRU, RG-LRU, local) x 4 + the (RG-LRU, RG-LRU) remainder hold
 # 3.81 B, ~38 GB of state, close to gemma3-4b's 38.87 GB
 RG_TRAIN_CUT = {"name": f"{RG_ARCH}-14layer", "num_layers": 14, "sb_repeat": 4}
+# every training phase's optimizer and parallel settings (the capture phase
+# traces the same step)
+TRAIN_OPT = {"lr": 1e-4, "warmup_steps": 2, "total_steps": 100}
+TRAIN_PAR = {"remat": "full", "microbatches": 1}
 # the dense archs train at full width and reduced depth too: at 12 bytes a
 # parameter the full archs need 90.8, 98.1 and 141.2 GB. Each cut keeps the
 # layer pattern and the embedding at about recurrentgemma-9b's 3.81 B: 3.709,
@@ -1620,13 +1646,15 @@ def bare_path(what):
                  "wrapper, during a timed run")
 
 
-def phase_serve(torch, arch, per_prefill):
+def phase_serve(torch, arch, per_prefill, count_flops=False):
     """Serve `arch` (cut as SERVE_CUTS says); `per_prefill` names each
     kernel's launches in one prefill (every other kernel must not launch).
     The timed run is the bare path; the MoE routings that the decode check
     reads come from a second, untimed run of the same prefill and decode,
     fed the same tokens. A cross-attention arch takes bf16 stub memory and
-    has every gate set to GATE. Returns the launches."""
+    has every gate set to GATE. With `count_flops`, one more prefill under
+    FlopCounterMode (untimed). Returns the prefill's launches and ms (and
+    FLOPs)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import Model
     from repro_torch.train.serve_step import (make_decode_step,
@@ -1727,6 +1755,7 @@ def phase_serve(torch, arch, per_prefill):
         # prefill); for MoE, with where the two routed differently
         seq = torch.cat([prompt] + toks, dim=1)
         checks = decode_vs_forward(model, seq, dec_logits, memory, *served_routes)
+        flops = count_flops_of(torch, lambda: prefill(prompt, memory)) if count_flops else None
         if memory is not None:
             a, _ = prefill(prompt, memory)
             check_memory_moves_logits(torch, arch, a, prefill(prompt, stub_memory(
@@ -1782,7 +1811,7 @@ def phase_serve(torch, arch, per_prefill):
             if not err <= rtol * scale:
                 fail(f"{arch}: {label}decode at position {pos} vs full forward: max "
                      f"abs err {err:.4g} > {rtol} x max |logit| {scale:.4g}")
-    return launches
+    return {"launches": launches, "prefill_ms": t_prefill * 1e3, "flops": flops}
 
 
 def check_memory_moves_logits(torch, what, a, b, rtol):
@@ -2355,7 +2384,7 @@ def phase_autograd_on_card(torch):
             f"(tol {rtol})")
 
 
-def phase_train(torch, card, arch):
+def phase_train(torch, card, arch, count_flops=False):
     """Train `arch` at full width, the serve phase's config at full depth or
     cut as TRAINED[arch]["train_cut"] says: TRAIN_STEPS steps of B
     TRAIN_BATCH x S TRAIN_SEQ from the port's data, remat full, one
@@ -2363,7 +2392,8 @@ def phase_train(torch, card, arch):
     full implies of each layer kind's forward and backward kernels,
     TRAINED[arch]["kernels"] (a forward per layer of the kind, again for each
     layer of the kind in the rematted superblocks, and a backward per layer
-    of the kind); no other kernel. Returns the run's numbers and launches."""
+    of the kind); no other kernel. With `count_flops`, one more step under
+    FlopCounterMode (untimed). Returns the run's numbers and launches."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.models import Model
@@ -2378,8 +2408,7 @@ def phase_train(torch, card, arch):
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda", seed=SEED, trainable=True)
     n_gates = set_gates(torch, model)
-    par = ParallelConfig(remat="full", microbatches=1)
-    step_fn = make_train_step(model, OptConfig(lr=1e-4, warmup_steps=2, total_steps=100), par)
+    step_fn = make_train_step(model, OptConfig(**TRAIN_OPT), ParallelConfig(**TRAIN_PAR))
     state = init_train_state(model)
     torch.cuda.synchronize()
     state_bytes = torch.cuda.memory_allocated()
@@ -2424,16 +2453,224 @@ def phase_train(torch, card, arch):
         + "; median step (steps 2-"
         f"{TRAIN_STEPS}) {step_ms:.2f} ms, {tok_s:.0f} tokens/s; peak memory "
         f"{peak / 1e9:.2f} GB ({peak} bytes); launches {launches} ({want} a step); {card}")
+    flops = count_flops_of(torch, lambda: step_fn(state, next(it))) if count_flops else None
     _, *window = profile_window(torch, lambda: step_fn(state, next(it)))
     buckets = log_window(cfg.name, "train step", *window)
     del model, state, step_fn, it, batch, metrics
     torch.cuda.empty_cache()
     return {"config": cfg.name, "layers": cfg.num_layers, "losses": losses, "gnorms": gnorms,
             **({"aux": auxes} if cfg.num_experts else {}),
-            "step_ms": step_ms, "tokens_per_s": tok_s,
+            "step_ms": step_ms, "tokens_per_s": tok_s, "flops": flops,
             "peak_bytes": peak, "state_bytes": state_bytes, "launches": launches,
             "launches_per_step": want,
             "step_times_ms": [t * 1e3 for t in times], "profile_ms": buckets}
+
+
+# ---------------------------------------------------------------------------
+# capture (phase 7)
+# ---------------------------------------------------------------------------
+
+# the launch counter each kernel operator's node stands for
+KERNEL_OPS = {"flash_attention_fwd": "flash_attention",
+              "flash_attention_fwd_lse": "flash_attention",
+              "flash_attention_bwd": "flash_attention_bwd", "ssd_fwd": "ssd",
+              "ssd_fwd_saved": "ssd", "ssd_bwd": "ssd_bwd", "rglru_scan_fwd": "rglru_scan",
+              "rglru_scan_bwd": "rglru_scan_bwd"}
+# the measured paths the capture phase traces: each arch's prefill as the
+# serve phase cuts it, and the training steps that carry K1, K2 and K3 with
+# their backwards
+SERVED_ARCHS = (ARCH, SSM_ARCH, RG_ARCH) + DENSE_ARCHS + MOE_ARCHS + CROSS_ARCHS
+CAPTURED_TRAIN = (ARCH, SSM_ARCH, RG_ARCH)
+# what one card cannot run, captured at full depth and held to two shallow
+# captures, depth by depth: dbrx-132b's training step at 40 layers (132 B
+# parameters, ~1.6 TB of state) and llama-3.2-vision-90b's prefill at 100,
+# in whole superblocks of 5
+CAPTURE_DEEP = ((DBRX, "train", (1, 2, 40)), (LLAMA, "prefill", (5, 10, 100)))
+
+
+def count_flops_of(torch, fn):
+    """FLOPs that FlopCounterMode counts over one real call of fn (the
+    kernels by their operators' formulas)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    torch.cuda.synchronize()
+    return fc.get_total_flops()
+
+
+def capture_path(torch, cfg, what):
+    """Capture one prefill of `cfg` (BATCH x PROMPT, cache PROMPT + STEPS) or
+    one training step (TRAIN_BATCH x TRAIN_SEQ, TRAIN_OPT, TRAIN_PAR) as the
+    serve and train phases run them, on fake cuda tensors. Returns the
+    capture's summary and seconds, its kernel nodes by launch counter, the
+    parameters, and CUDA's allocated and reserved bytes, allocations made and
+    launch counts before and after it."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core import capture_step, fake_mode
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.serve_step import make_prefill_step
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    counters = _launch_counters()
+
+    def device_state():
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_allocated(), torch.cuda.memory_reserved(),
+                torch.cuda.memory_stats()["allocation.all.allocated"],
+                {name: fn.launches for name, fn in counters.items()})
+
+    before = device_state()
+    t0 = time.perf_counter()
+    batch, seq = (TRAIN_BATCH, TRAIN_SEQ) if what == "train" else (BATCH, PROMPT)
+    with fake_mode():
+        model = Model(cfg, trainable=what == "train", abstract=True)
+        tokens = torch.empty(batch, seq, dtype=torch.long, device="cuda")
+        memory = (torch.empty(batch, model.memory_len(), cfg.d_model, dtype=torch.bfloat16,
+                              device="cuda") if model.memory_len() else None)
+        if what == "train":
+            step = make_train_step(model, OptConfig(**TRAIN_OPT), ParallelConfig(**TRAIN_PAR))
+            data = {"tokens": tokens, "labels": tokens,
+                    **({"memory": memory} if memory is not None else {})}
+            cap = capture_step(step, (init_train_state(model), data), {"config": cfg.name})
+        else:
+            cap = capture_step(make_prefill_step(model, PROMPT + STEPS), (tokens, memory),
+                               {"config": cfg.name})
+        n_params = sum(p.numel() for p in model.parameters())
+    seconds = time.perf_counter() - t0
+    nodes = {name: 0 for name in counters}
+    for op, n in cap.summary["kernel_nodes"].items():
+        nodes[KERNEL_OPS[op]] += n
+    summary = {k: cap.summary[k] for k in ("parsed_flops", "parsed_hbm_bytes", "n_nodes",
+                                           "kernel_nodes")}
+    return {"config": cfg.name, "what": what, "seconds": seconds, **summary,
+            "fx_nodes": cap.meta["fx_nodes"], "t_trace_s": cap.meta["t_trace_s"],
+            "kernel_launch_nodes": nodes, "params": n_params,
+            "device_before": before, "device_after": device_state()}
+
+
+def capture_main(torch):
+    """The capture phase's process: every capture, one JSON line each. It
+    runs beside the other phases, at the lowest priority and on one thread,
+    with CUDA initialised (one allocation of its own), so that an
+    allocation or a launch by a capture would show in its counts."""
+    from repro_torch.configs.registry import get_config
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)     # PR_SET_PDEATHSIG: die with the parent
+    os.nice(19)
+    torch.set_num_threads(1)
+    from repro_torch.core import fake_mode
+    live = torch.zeros(1, device="cuda")           # noqa: F841 (the allocator is live)
+    # FakeTensorMode readies CUDA for a fake backward with one real 4-byte
+    # tensor per device name, once a process (init_gpu_context in
+    # torch/_subclasses/fake_tensor.py): here, before the first capture
+    with fake_mode():
+        torch.empty(1, device="cuda") + torch.empty(1, device="cuda:0")
+    for cfg, what in capture_jobs(get_config):
+        print(json.dumps(capture_path(torch, cfg, what)), flush=True)
+    return 0
+
+
+def capture_jobs(get_config):
+    """[(config, "prefill" or "train")] of the capture phase, in order: the
+    measured paths, then CAPTURE_DEEP's depths."""
+    jobs = [(serve_config(get_config, arch), "prefill") for arch in SERVED_ARCHS]
+    jobs += [(get_config(arch).replace(**TRAINED[arch].get("train_cut", {})), "train")
+             for arch in CAPTURED_TRAIN]
+    for arch, what, depths in CAPTURE_DEEP:
+        cfg = get_config(arch)
+        nsb = len(cfg.superblock)
+        jobs += [(cfg.replace(name=f"{arch}-{L}layer", num_layers=L, sb_repeat=L // nsb), what)
+                 for L in depths]
+    return jobs
+
+
+CAPTURE_OUT = os.path.join(ROOT, "build", "capture-process")   # .jsonl and .log
+
+
+def start_captures():
+    """Start the capture phase's process (capture_main), its output and
+    errors into CAPTURE_OUT; it dies with this process."""
+    os.makedirs(os.path.dirname(CAPTURE_OUT), exist_ok=True)
+    with open(CAPTURE_OUT + ".jsonl", "w") as out, open(CAPTURE_OUT + ".log", "w") as err:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--capture-process"], stdout=out, stderr=err)
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    return proc
+
+
+def roofline_ms(flops, nbytes):
+    """The graph's least time on the card, from the data sheet: its FLOPs at
+    the bf16 dense peak and its bytes at HBM3's rate (per op, unfused); the
+    larger of the two bounds it."""
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), t_ops, t_bytes
+
+
+def phase_capture(torch, card, proc, measured, real_flops):
+    """Read the capture process (start_captures) and hold its captures:
+    (i) none changed CUDA's allocated or reserved bytes or made an
+    allocation, and none moved a launch counter;
+    (ii) each measured path's kernel nodes equal the launches its measured
+    run counted (`measured`: {(config, what): (launches, ms)}); (iii) the
+    FLOPs FlopCounterMode counted around a real prefill and train step
+    (`real_flops`: {(config, what): FLOPs}) equal the captured
+    parsed_flops; the graph's roofline is not above the measured time; the
+    full-depth captures are linear in depth against the two shallow ones.
+    Returns the captures."""
+    if proc.wait(timeout=900) != 0:
+        with open(CAPTURE_OUT + ".log") as f:
+            fail(f"capture process exited {proc.returncode}:\n{f.read()[-4000:]}")
+    with open(CAPTURE_OUT + ".jsonl") as f:
+        caps = [json.loads(x) for x in f if x.startswith("{")]
+    log(f"[capture] {len(caps)} captures on fake cuda, in a process of their own beside "
+        f"the other phases: {sum(c['seconds'] for c in caps):.1f} s in all; {card}")
+    by_key = {}
+    for c in caps:
+        by_key[(c["config"], c["what"])] = c
+        *mem_b, launches_b = c["device_before"]
+        *mem_a, launches_a = c["device_after"]
+        if mem_a != mem_b or launches_a != launches_b or any(launches_a.values()):
+            fail(f"capture {c['config']} {c['what']}: device (allocated, reserved, "
+                 f"allocations) {mem_b} -> {mem_a}, launches {launches_b} -> {launches_a}")
+        log(f"[capture] {c['config']} {c['what']}: {c['seconds']:.1f} s (trace "
+            f"{c['t_trace_s']:.1f} s), {c['fx_nodes']} FX nodes, {c['n_nodes']} graph nodes, "
+            f"kernel nodes {c['kernel_nodes']}, {c['parsed_flops']:.6e} FLOPs, "
+            f"{c['parsed_hbm_bytes']:.6e} bytes, {c['params'] / 1e9:.3f}B params; device "
+            f"(allocated, reserved, allocations) {mem_b} before and after")
+    for (config, what), (launches, ms) in measured.items():
+        c = by_key[(config, what)]
+        if c["kernel_launch_nodes"] != launches:
+            fail(f"capture {config} {what}: kernel nodes {c['kernel_launch_nodes']}, the "
+                 f"measured run launched {launches}")
+        bound, t_ops, t_bytes = roofline_ms(c["parsed_flops"], c["parsed_hbm_bytes"])
+        log(f"[capture] {config} {what}: kernel nodes = measured launches "
+            f"{ {k: v for k, v in launches.items() if v} }; roofline (data sheet: "
+            f"{PEAK_FLOPS['bfloat16'] / 1e12:g} TFLOP/s bf16 dense, {PEAK_BYTES / 1e12:g} "
+            f"TB/s) {bound:.2f} ms (FLOPs {t_ops:.2f} ms, bytes {t_bytes:.2f} ms), measured "
+            f"{ms:.2f} ms ({bound / ms:.1%})")
+        if bound > ms:
+            fail(f"capture {config} {what}: roofline {bound:.2f} ms above the measured "
+                 f"{ms:.2f} ms")
+    for (config, what), flops in real_flops.items():
+        captured = by_key[(config, what)]["parsed_flops"]
+        if flops != captured:
+            fail(f"capture {config} {what}: FlopCounterMode counted {flops} FLOPs in a real "
+                 f"run on the card, the capture {captured}")
+        log(f"[capture] {config} {what}: FlopCounterMode around a real run on the card "
+            f"{flops} FLOPs = captured parsed_flops")
+    for arch, what, (d1, d2, full) in CAPTURE_DEEP:
+        c1, c2, cf = (by_key[(f"{arch}-{L}layer", what)] for L in (d1, d2, full))
+        step = (full - d1) // (d2 - d1)
+        want = c1["parsed_flops"] + step * (c2["parsed_flops"] - c1["parsed_flops"])
+        if cf["parsed_flops"] != want:
+            fail(f"capture {arch} {what} at {full} layers: {cf['parsed_flops']} FLOPs, the "
+                 f"{d1}- and {d2}-layer captures give {want}")
+        log(f"[capture] {arch} {what} at {full} layers ({cf['params'] / 1e9:.2f}B params"
+            + (f", {12 * cf['params'] / 1e12:.2f} TB of state at 12 bytes a parameter"
+               if what == "train" else "")
+            + f"): {cf['seconds']:.1f} s, {cf['n_nodes']} graph nodes, {cf['parsed_flops']:.6e} "
+            f"FLOPs = flops({d1}) + {step} x (flops({d2}) - flops({d1})), exactly")
+    return caps
 
 
 def main(argv=None):
@@ -2441,6 +2678,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernels phase (prints no result line)")
+    ap.add_argument("--capture-process", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2452,12 +2690,14 @@ def main(argv=None):
               "run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    if args.capture_process:
+        return capture_main(torch)
     seconds = {}
 
-    def timed(label, fn, *fn_args):
-        """fn(*fn_args), its wall seconds kept under `label`."""
+    def timed(label, fn, *fn_args, **fn_kw):
+        """fn(*fn_args, **fn_kw), its wall seconds kept under `label`."""
         t0 = time.perf_counter()
-        out = fn(*fn_args)
+        out = fn(*fn_args, **fn_kw)
         seconds[label] = round(time.perf_counter() - t0, 1)
         return out
 
@@ -2477,6 +2717,7 @@ def main(argv=None):
         log(card)
         return 0
     from repro_torch.configs.registry import get_config
+    captures = start_captures()
 
     def count(arch, kind):
         return kind_layers(get_config(arch), kind)[0]
@@ -2486,7 +2727,7 @@ def main(argv=None):
         return len(k1_layers(serve_config(get_config, arch)))
 
     by_arch = {ARCH: timed(f"serve {ARCH}", phase_serve, torch, ARCH, {
-        "flash_attention": k1_count(ARCH)})}
+        "flash_attention": k1_count(ARCH)}, count_flops=True)}
     torch.cuda.empty_cache()
     by_arch[SSM_ARCH] = timed(f"serve {SSM_ARCH}", phase_serve, torch, SSM_ARCH,
                               {"ssd": count(SSM_ARCH, "ssd")})
@@ -2496,7 +2737,7 @@ def main(argv=None):
         "flash_attention": k1_count(RG_ARCH)})
     torch.cuda.empty_cache()
     grad = timed(f"grad {ARCH}", phase_grad_check, torch, ARCH)
-    train = timed(f"train {ARCH}", phase_train, torch, card, ARCH)
+    train = timed(f"train {ARCH}", phase_train, torch, card, ARCH, count_flops=True)
     ssm_grad = timed(f"grad {SSM_ARCH}", phase_grad_check, torch, SSM_ARCH)
     timed("autograd on the card", phase_autograd_on_card, torch)
     ssm_train = timed(f"train {SSM_ARCH}", phase_train, torch, card, SSM_ARCH)
@@ -2529,8 +2770,16 @@ def main(argv=None):
                   for arch in CROSS_ARCHS}
     cross_train = {arch: timed(f"train {arch}", phase_train, torch, card, arch)
                    for arch in CROSS_ARCHS}
-    flash["launches_by_path"] = {f"serve {a}": n["flash_attention"] for a, n in by_arch.items()
-                                 if n["flash_attention"]}
+    # the capture of every measured path against its run
+    measured = {(serve_config(get_config, a).name, "prefill"): (n["launches"], n["prefill_ms"])
+                for a, n in by_arch.items()}
+    for t in (train, ssm_train, rg_train):
+        measured[(t["config"], "train")] = (t["launches_per_step"], t["step_ms"])
+    real_flops = {(serve_config(get_config, ARCH).name, "prefill"): by_arch[ARCH]["flops"],
+                  (train["config"], "train"): train["flops"]}
+    timed("capture", phase_capture, torch, card, captures, measured, real_flops)
+    flash["launches_by_path"] = {f"serve {a}": n["launches"]["flash_attention"]
+                                 for a, n in by_arch.items() if n["launches"]["flash_attention"]}
     trained_on_k1 = {ARCH: train, RG_ARCH: rg_train, **dense_train, **moe_train, **cross_train}
     for a, t in trained_on_k1.items():
         flash["launches_by_path"][f"train {a}"] = t["launches"]["flash_attention"]
@@ -2547,14 +2796,14 @@ def main(argv=None):
     flash_bwd["train_by_arch"] = {a: {k: v for k, v in t.items() if k != "launches"}
                                   for a, t in {**dense_train, **moe_train,
                                                **cross_train}.items()}
-    ssd["launches_by_path"] = {f"serve {SSM_ARCH}": by_arch[SSM_ARCH]["ssd"],
+    ssd["launches_by_path"] = {f"serve {SSM_ARCH}": by_arch[SSM_ARCH]["launches"]["ssd"],
                                f"train {SSM_ARCH}": ssm_train["launches"]["ssd"]}
     ssd["launches"] = sum(ssd["launches_by_path"].values())
     ssd_bwd["launches"] = ssm_train["launches"]["ssd_bwd"]
     ssd_bwd["launches_by_path"] = {f"train {SSM_ARCH}": ssd_bwd["launches"]}
     ssd_bwd["grad_check"] = ssm_grad
     ssd_bwd["train"] = {k: v for k, v in ssm_train.items() if k != "launches"}
-    scan["launches_by_path"] = {f"serve {RG_ARCH}": by_arch[RG_ARCH]["rglru_scan"],
+    scan["launches_by_path"] = {f"serve {RG_ARCH}": by_arch[RG_ARCH]["launches"]["rglru_scan"],
                                 f"train {RG_ARCH}": rg_train["launches"]["rglru_scan"]}
     scan["launches"] = sum(scan["launches_by_path"].values())
     scan_bwd["launches"] = rg_train["launches"]["rglru_scan_bwd"]

@@ -15,8 +15,9 @@ import ctypes
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -229,3 +230,97 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=
 
 
 flash_attention_bwd.launches = 0
+
+
+# -- the operators ------------------------------------------------------------
+# K1 and its backward as operators of their own (torch.library), which
+# ``kernels/ops.py`` calls: on a CUDA tensor each runs its wrapper above (the
+# kernel, its checks and its launch count), on a CPU tensor the plain version,
+# on a fake tensor (``core/capture.py``) only the outputs' shapes, so that a
+# trace records each call as one node. The forward is two operators, one for
+# each set of outputs, since an operator's outputs are fixed.
+
+_ATTN_ARGS = "Tensor q, Tensor k, Tensor v, float? scale, bool causal, int window"
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda", schema=f"({_ATTN_ARGS}) -> Tensor")
+def flash_attention_fwd_op(q, k, v, scale, causal, window):
+    """(BH,Sq,hd) output of K1; ``flash_attention_fwd`` on the card."""
+    return flash_attention_fwd(q, k, v, scale=scale, causal=causal, window=window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd_lse", mutates_args=(),
+                         device_types="cuda", schema=f"({_ATTN_ARGS}) -> (Tensor, Tensor)")
+def flash_attention_fwd_lse_op(q, k, v, scale, causal, window):
+    """K1's output and its rows' logsumexp, which the backward reads."""
+    return flash_attention_fwd(q, k, v, scale=scale, causal=causal, window=window,
+                               return_lse=True)
+
+
+@torch.library.custom_op(
+    "repro_torch::flash_attention_bwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do, float? scale, "
+           "bool causal, int window) -> (Tensor, Tensor, Tensor)")
+def flash_attention_bwd_op(q, k, v, o, lse, do, scale, causal, window):
+    """(dq, dk, dv) of K1's backward; ``flash_attention_bwd`` on the card."""
+    return flash_attention_bwd(q, k, v, o, lse, do, scale=scale, causal=causal,
+                               window=window)
+
+
+@flash_attention_fwd_op.register_kernel("cpu")
+def _(q, k, v, scale, causal, window):
+    return ref.flash_attention_oracle(q, k, v, scale=scale, causal=causal, window=window)
+
+
+@flash_attention_fwd_lse_op.register_kernel("cpu")
+def _(q, k, v, scale, causal, window):
+    return ref.flash_attention_oracle(q, k, v, scale=scale, causal=causal, window=window,
+                                      return_lse=True)
+
+
+@flash_attention_bwd_op.register_kernel("cpu")
+def _(q, k, v, o, lse, do, scale, causal, window):
+    return ref.flash_attention_bwd_oracle(q, k, v, o, lse, do, scale=scale, causal=causal,
+                                          window=window)
+
+
+@flash_attention_fwd_op.register_fake
+def _(q, k, v, scale, causal, window):
+    return torch.empty_like(q)
+
+
+@flash_attention_fwd_lse_op.register_fake
+def _(q, k, v, scale, causal, window):
+    lse_dtype = torch.promote_types(q.dtype, torch.float32)
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=lse_dtype)
+
+
+@flash_attention_bwd_op.register_fake
+def _(q, k, v, o, lse, do, scale, causal, window):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def flops(q_shape, k_shape):
+    """The products of the plain forward, as ``FlopCounterMode`` counts them:
+    scores and P V over every (q, k) pair of each of the BH heads, whatever
+    the mask, 2 hd each."""
+    (BH, Sq, hd), Sk = q_shape, k_shape[1]
+    return 4 * BH * Sq * Sk * hd
+
+
+def bwd_flops(q_shape, k_shape):
+    """The plain backward's five products (the scores again, dV, dP, dQ,
+    dK), as ``FlopCounterMode`` counts them."""
+    return 5 * flops(q_shape, k_shape) // 2
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_attention_fwd,
+                        torch.ops.repro_torch.flash_attention_fwd_lse])
+def _(q_shape, k_shape, *args, out_shape=None, **kwargs):
+    return flops(q_shape, k_shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _(q_shape, k_shape, *args, out_shape=None, **kwargs):
+    return bwd_flops(q_shape, k_shape)

@@ -1,8 +1,12 @@
 """Model-layout entry points of the kernels (the ops.py contract).
 
-They adapt the model's layouts to the kernels' and dispatch on the device of
-the tensors: a CUDA tensor launches the Hopper kernel, a CPU tensor takes the
-kernel's plain version in ``ref.py``. Counterpart of ``src/repro/kernels/ops.py``.
+They adapt the model's layouts to the kernels' and call each kernel as an
+operator of its own (``torch.ops.repro_torch.*``, registered beside each
+wrapper), which dispatches on the device of the tensors: a CUDA tensor
+launches the Hopper kernel, a CPU tensor takes the kernel's plain version in
+``ref.py``, and a fake tensor gives only the outputs' shapes, so that a
+trace (``core/capture.py``) holds one node per kernel call. Counterpart of
+``src/repro/kernels/ops.py``.
 
 ``flash_attention``, ``ssd`` and ``rglru_scan`` are differentiable: when
 autograd needs their gradient they run as ``FlashAttention``, ``SSD`` and
@@ -15,11 +19,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import (flash_attention_bwd,
-                                                 flash_attention_fwd)
-from repro_torch.kernels.rglru import rglru_scan_bwd, rglru_scan_fwd
-from repro_torch.kernels.ssd import ssd_bwd, ssd_fwd
+# the modules register the operators of torch.ops.repro_torch
+from repro_torch.kernels import flash_attention, rglru, ssd  # noqa: F401
+
+_ops = torch.ops.repro_torch
 
 
 def _needs_grad(*tensors):
@@ -32,12 +35,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        if q.device.type == "cuda":
-            o, lse = flash_attention_fwd(q, k, v, scale=scale, causal=causal,
-                                         window=window, return_lse=True)
-        else:
-            o, lse = ref.flash_attention_oracle(q, k, v, scale=scale, causal=causal,
-                                                window=window, return_lse=True)
+        o, lse = _ops.flash_attention_fwd_lse(q, k, v, scale, causal, window)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (causal, window, scale)
         return o
@@ -46,9 +44,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         causal, window, scale = ctx.args
-        fn = flash_attention_bwd if q.device.type == "cuda" else ref.flash_attention_bwd_oracle
-        dq, dk, dv = fn(q, k, v, o, lse, do.contiguous(), scale=scale, causal=causal,
-                        window=window)
+        dq, dk, dv = _ops.flash_attention_bwd(q, k, v, o, lse, do.contiguous(), scale,
+                                              causal, window)
         return dq, dk, dv, None, None, None
 
 
@@ -67,8 +64,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     if _needs_grad(q, k, v):
         o = FlashAttention.apply(qf, kf, vf, causal, window, scale)
     else:
-        fn = flash_attention_fwd if q.device.type == "cuda" else ref.flash_attention_oracle
-        o = fn(qf, kf, vf, scale=scale, causal=causal, window=window)
+        o = _ops.flash_attention_fwd(qf, kf, vf, scale, causal, window)
     return o.reshape(B, KV, G, S, hd).movedim(3, 1)
 
 
@@ -78,15 +74,14 @@ class RGLRU(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b):
-        h = rglru_scan_fwd(a, b) if a.device.type == "cuda" else ref.rglru_scan_oracle(a, b)
+        h = _ops.rglru_scan_fwd(a, b)
         ctx.save_for_backward(a, h)
         return h
 
     @staticmethod
     def backward(ctx, dh):
         a, h = ctx.saved_tensors
-        fn = rglru_scan_bwd if a.device.type == "cuda" else ref.rglru_scan_bwd_oracle
-        return fn(a, h, dh.contiguous())
+        return _ops.rglru_scan_bwd(a, h, dh.contiguous())
 
 
 def rglru_scan(a, b):
@@ -100,9 +95,7 @@ def rglru_scan(a, b):
     a, b = a.float().contiguous(), b.float().contiguous()
     if _needs_grad(a, b):
         return RGLRU.apply(a, b)
-    if a.device.type == "cuda":
-        return rglru_scan_fwd(a, b)
-    return ref.rglru_scan_oracle(a, b)
+    return _ops.rglru_scan_fwd(a, b)
 
 
 class SSD(torch.autograd.Function):
@@ -116,9 +109,9 @@ class SSD(torch.autograd.Function):
     def forward(ctx, x, dt, A, B, C, chunk):
         ctx.set_materialize_grads(False)
         if x.device.type == "cuda":
-            y, s_final, *saved = ssd_fwd(x, dt, A, B, C, chunk=chunk, return_saved=True)
+            y, s_final, *saved = _ops.ssd_fwd_saved(x, dt, A, B, C, chunk)
         else:
-            (y, s_final), saved = ref.ssd_oracle(x, dt, A, B, C), []
+            (y, s_final), saved = _ops.ssd_fwd(x, dt, A, B, C, chunk), []
         ctx.save_for_backward(x, dt, A, B, C, *saved)
         ctx.chunk = chunk
         return y, s_final
@@ -128,10 +121,8 @@ class SSD(torch.autograd.Function):
         x, dt, A, B, C, *saved = ctx.saved_tensors
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
         ds_final = None if ds_final is None else ds_final.contiguous()
-        if x.device.type == "cuda":
-            grads = ssd_bwd(x, dt, A, B, C, dy, ds_final, *saved, chunk=ctx.chunk)
-        else:
-            grads = ref.ssd_bwd_oracle(x, dt, A, B, C, dy, ds_final, chunk=ctx.chunk)
+        states, cum, cb = saved or (None, None, None)
+        grads = _ops.ssd_bwd(x, dt, A, B, C, dy, ds_final, states, cum, cb, ctx.chunk)
         return (*grads, None)
 
 
@@ -146,6 +137,4 @@ def ssd(x, dt, A, B, C, *, chunk=256):
     x, dt, A, B, C = (t.float().contiguous() for t in (x, dt, A, B, C))
     if _needs_grad(x, dt, A, B, C):
         return SSD.apply(x, dt, A, B, C, chunk)
-    if x.device.type == "cuda":
-        return ssd_fwd(x, dt, A, B, C, chunk=chunk)
-    return ref.ssd_oracle(x, dt, A, B, C)
+    return _ops.ssd_fwd(x, dt, A, B, C, chunk)

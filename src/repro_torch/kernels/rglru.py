@@ -14,8 +14,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 CHUNK = 64          # time steps per tile: ``T`` in csrc/rglru.cu
 
@@ -132,3 +133,57 @@ def rglru_scan_bwd(a, h, dh):
 
 
 rglru_scan_bwd.launches = 0
+
+
+# -- the operators ------------------------------------------------------------
+# K3 and its backward as operators of their own (torch.library), which
+# ``kernels/ops.py`` calls: on a CUDA tensor each runs its wrapper above (the
+# kernel, its checks and its launch count), on a CPU tensor the plain version,
+# on a fake tensor (``core/capture.py``) only the outputs' shapes, so that a
+# trace records each call as one node.
+
+@torch.library.custom_op("repro_torch::rglru_scan_fwd", mutates_args=(), device_types="cuda",
+                         schema="(Tensor a, Tensor b) -> Tensor")
+def rglru_scan_fwd_op(a, b):
+    """h of K3; ``rglru_scan_fwd`` on the card."""
+    return rglru_scan_fwd(a, b)
+
+
+@torch.library.custom_op("repro_torch::rglru_scan_bwd", mutates_args=(), device_types="cuda",
+                         schema="(Tensor a, Tensor h, Tensor dh) -> (Tensor, Tensor)")
+def rglru_scan_bwd_op(a, h, dh):
+    """(da, db) of K3's backward; ``rglru_scan_bwd`` on the card."""
+    return rglru_scan_bwd(a, h, dh)
+
+
+@rglru_scan_fwd_op.register_kernel("cpu")
+def _(a, b):
+    return ref.rglru_scan_oracle(a, b)
+
+
+@rglru_scan_bwd_op.register_kernel("cpu")
+def _(a, h, dh):
+    return ref.rglru_scan_bwd_oracle(a, h, dh)
+
+
+def _fake_like(a):
+    return a.new_empty(a.shape, dtype=torch.promote_types(a.dtype, torch.float32))
+
+
+@rglru_scan_fwd_op.register_fake
+def _(a, b):
+    return _fake_like(a)
+
+
+@rglru_scan_bwd_op.register_fake
+def _(a, h, dh):
+    return _fake_like(a), _fake_like(a)
+
+
+@register_flop_formula([torch.ops.repro_torch.rglru_scan_fwd,
+                        torch.ops.repro_torch.rglru_scan_bwd])
+def _(*args, out_shape=None, **kwargs):
+    """The recurrence and its gradient are elementwise: ``FlopCounterMode``
+    counts 0 over their plain versions, as the JAX capture counts no dot in
+    the scan's ``rglru_vmem`` scope."""
+    return 0

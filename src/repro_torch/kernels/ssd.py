@@ -16,8 +16,9 @@ import functools
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (16, 32, 64)
 MAX_STATE = 256
@@ -219,3 +220,122 @@ def ssd_bwd(x, dt, A, B, C, dy, dS_final, states, cum, cb, *, chunk=256):
 
 
 ssd_bwd.launches = 0
+
+
+# -- the operators ------------------------------------------------------------
+# K2 and its backward as operators of their own (torch.library), which
+# ``kernels/ops.py`` calls: on a CUDA tensor each runs its wrapper above (the
+# kernel, its checks and its launch count), on a CPU tensor the plain version,
+# on a fake tensor (``core/capture.py``) only the outputs' shapes, so that a
+# trace records each call as one node. The forward is two operators, one for
+# each set of outputs; the plain forward keeps nothing for the backward, so
+# only the card runs the second.
+
+_SSD_ARGS = "Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, int chunk"
+
+
+@torch.library.custom_op("repro_torch::ssd_fwd", mutates_args=(), device_types="cuda",
+                         schema=f"({_SSD_ARGS}) -> (Tensor, Tensor)")
+def ssd_fwd_op(x, dt, A, B, C, chunk):
+    """(y, S_final) of K2; ``ssd_fwd`` on the card."""
+    return ssd_fwd(x, dt, A, B, C, chunk=chunk)
+
+
+@torch.library.custom_op("repro_torch::ssd_fwd_saved", mutates_args=(), device_types="cuda",
+                         schema=f"({_SSD_ARGS}) -> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+def ssd_fwd_saved_op(x, dt, A, B, C, chunk):
+    """(y, S_final, states, cum, cb): K2 with what its backward reads (empty
+    tensors for s = 0, which the backward does not read)."""
+    out = ssd_fwd(x, dt, A, B, C, chunk=chunk, return_saved=True)
+    return tuple(x.new_empty(0) if t is None else t for t in out)
+
+
+@torch.library.custom_op(
+    "repro_torch::ssd_bwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, Tensor dy, "
+           "Tensor? dS_final, Tensor? states, Tensor? cum, Tensor? cb, int chunk) "
+           "-> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+def ssd_bwd_op(x, dt, A, B, C, dy, dS_final, states, cum, cb, chunk):
+    """(dx, ddt, dA, dB, dC) of K2's backward; ``ssd_bwd`` on the card, which
+    needs the saved states, cum and cb of ``ssd_fwd_saved``."""
+    if states is None or cum is None or cb is None:
+        raise ValueError("ssd_bwd on the card reads the forward's states, cum and cb "
+                         "(repro_torch::ssd_fwd_saved)")
+    return ssd_bwd(x, dt, A, B, C, dy, dS_final, states, cum, cb, chunk=chunk)
+
+
+@ssd_fwd_op.register_kernel("cpu")
+def _(x, dt, A, B, C, chunk):
+    return ref.ssd_oracle(x, dt, A, B, C)
+
+
+@ssd_bwd_op.register_kernel("cpu")
+def _(x, dt, A, B, C, dy, dS_final, states, cum, cb, chunk):
+    # contiguous, as the kernel's (the plain backward slices its padded chunks)
+    return tuple(g.contiguous() for g in
+                 ref.ssd_bwd_oracle(x, dt, A, B, C, dy, dS_final, chunk=chunk))
+
+
+def _f32(x):
+    """The dtype of the plain version's outputs: at least float32."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _fake_fwd(x, B):
+    b, _, h, p = x.shape
+    return (torch.empty_like(x, dtype=_f32(x)),
+            x.new_empty(b, h, B.shape[-1], p, dtype=_f32(x)))
+
+
+@ssd_fwd_op.register_fake
+def _(x, dt, A, B, C, chunk):
+    return _fake_fwd(x, B)
+
+
+@ssd_fwd_saved_op.register_fake
+def _(x, dt, A, B, C, chunk):
+    b, s, h, p = x.shape
+    if s == 0:
+        return (*_fake_fwd(x, B), *(x.new_empty(0, dtype=_f32(x)) for _ in range(3)))
+    shapes = scratch_shapes(b, s, h, p, B.shape[-1], chunk)
+    return (*_fake_fwd(x, B),
+            *(x.new_empty(shapes[k], dtype=_f32(x)) for k in ("states", "cum", "cb")))
+
+
+@ssd_bwd_op.register_fake
+def _(x, dt, A, B, C, dy, dS_final, states, cum, cb, chunk):
+    return tuple(torch.empty_like(t, dtype=_f32(x)) for t in (x, dt, A, B, C))
+
+
+def flops(x_shape, n):
+    """The products of the plain forward (one step at a time), as
+    ``FlopCounterMode`` counts them: at each step the readout C S, 2 h p n
+    (the state update B x^T is an outer product, which einsum computes
+    elementwise, and the counter counts no elementwise work)."""
+    b, s, h, p = x_shape
+    return 2 * b * s * h * p * n
+
+
+def bwd_flops(x_shape, n, chunk):
+    """The plain backward's products, as ``FlopCounterMode`` counts them,
+    over nc chunks of Q = min(chunk, s) rows (the last one padded): C B^T,
+    (sum P) B and (sum P)^T C, 2 Q^2 n each; dy x^T and M^T dy per head, 2
+    Q^2 p each; the chunk states, their gradients and the products of B, C,
+    x and dy with them, five of 2 Q n p per head."""
+    b, s, h, p = x_shape
+    if s == 0:
+        return 0
+    Q = min(chunk, s)
+    nc = -(-s // Q)
+    return 2 * b * nc * Q * (3 * Q * n + 2 * h * Q * p + 5 * h * n * p)
+
+
+@register_flop_formula([torch.ops.repro_torch.ssd_fwd, torch.ops.repro_torch.ssd_fwd_saved])
+def _(x_shape, dt_shape, A_shape, B_shape, *args, out_shape=None, **kwargs):
+    return flops(x_shape, B_shape[-1])
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_bwd)
+def _(x_shape, dt_shape, A_shape, B_shape, C_shape, dy_shape, dS_shape, states_shape,
+      cum_shape, cb_shape, chunk, *args, out_shape=None, **kwargs):
+    return bwd_flops(x_shape, B_shape[-1], chunk)

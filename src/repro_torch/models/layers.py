@@ -4,7 +4,9 @@ Every parameter is declared once as a ParamSpec (shape, dtype, init) in the
 JAX package's layout; ``ParamTree`` materializes a nested dict of specs into
 an ``nn.Module`` of raw ``nn.Parameter``s with the same nesting, so the
 functional layers below index it as ``p["wq"]`` exactly as the JAX code
-indexes its pytree, and the weight bridge is a 1:1 copy.
+indexes its pytree, and the weight bridge is a 1:1 copy. With ``abstract``
+it takes ``abstract_from_specs``'s empty tensors instead, which a trace
+under FakeTensorMode makes fake (``core/capture.py``).
 """
 from __future__ import annotations
 
@@ -43,20 +45,31 @@ class ParamSpec:
         return (x * std).to(self.dtype)
 
 
-class ParamTree(nn.Module):
-    """A nested dict of ParamSpecs as a module of raw parameters. They take
-    grads only when ``trainable`` (serving keeps them frozen)."""
+def abstract_from_specs(specs, device):
+    """Counterpart of ``repro/models/layers.py::abstract_from_specs``: the
+    specs' shapes and dtypes as empty tensors, with no init. Made under a
+    FakeTensorMode they are fake and take no memory."""
+    if isinstance(specs, ParamSpec):
+        return torch.empty(specs.shape, dtype=specs.dtype, device=device)
+    return {k: abstract_from_specs(s, device) for k, s in specs.items()}
 
-    def __init__(self, specs: dict, generator: torch.Generator, device,
-                 trainable: bool = False):
+
+class ParamTree(nn.Module):
+    """A nested dict of ParamSpecs as a module of raw parameters: seeded from
+    ``generator``, or with ``abstract`` empty (``abstract_from_specs``).
+    They take grads only when ``trainable`` (serving keeps them frozen)."""
+
+    def __init__(self, specs: dict, generator: torch.Generator | None, device,
+                 trainable: bool = False, abstract: bool = False):
         super().__init__()
         for key in sorted(specs):
             spec = specs[key]
             if isinstance(spec, ParamSpec):
-                self.register_parameter(key, nn.Parameter(
-                    spec.materialize(generator, device), requires_grad=trainable))
+                value = (abstract_from_specs(spec, device) if abstract
+                         else spec.materialize(generator, device))
+                self.register_parameter(key, nn.Parameter(value, requires_grad=trainable))
             else:
-                self.add_module(key, ParamTree(spec, generator, device, trainable))
+                self.add_module(key, ParamTree(spec, generator, device, trainable, abstract))
 
     def __getitem__(self, key):
         return getattr(self, key)

@@ -188,16 +188,24 @@ class Model(nn.Module):
     (``None`` means ``cuda``; the CPU only when asked for). Parameters
     require grad only when ``trainable``; serving leaves them frozen.
     ``apply`` shadows ``nn.Module.apply`` on purpose, to keep the JAX
-    package's API names."""
+    package's API names. With ``abstract`` the parameters are empty, with
+    no init (``abstract_from_specs``): made inside a FakeTensorMode they are
+    fake, so a model of any width and depth takes no memory, on ``device``
+    whether or not a card is present, and a trace of it
+    (``core.capture.capture_step``) launches nothing."""
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
-                 trainable: bool = False):
+                 trainable: bool = False, abstract: bool = False):
         super().__init__()
-        device = resolve_device(device)
+        if abstract:
+            device = _abstract_device(device)
+            g = None
+        else:
+            device = resolve_device(device)
+            g = torch.Generator(device=device).manual_seed(seed)
         self.cfg = cfg
-        g = torch.Generator(device=device).manual_seed(seed)
         tree = functools.partial(ParamTree, generator=g, device=device,
-                                 trainable=trainable)
+                                 trainable=trainable, abstract=abstract)
         self.embed = tree(embed_specs(cfg.vocab_size, cfg.d_model))
         self.final_norm = tree(rms_norm_specs(cfg.d_model))
         if not cfg.tie_embeddings:
@@ -385,6 +393,23 @@ class Model(nn.Module):
         if self.cfg.is_encdec:
             return self.cfg.encoder_len
         return 0
+
+
+def _abstract_device(device) -> torch.device:
+    """The device of an abstract model: any, but only inside a
+    FakeTensorMode (nothing of the model can run). A fake ``cuda`` model
+    needs no card but a build of PyTorch with CUDA: indexing asks the device
+    for a guard even for a fake tensor, and autograd for its stream, which a
+    build without CUDA does not have (autograd aborts the process there)."""
+    dev = torch.device("cuda" if device is None else device)
+    if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is None:
+        raise RuntimeError("an abstract model has fake parameters: make it inside a "
+                           "FakeTensorMode (core.capture.fake_mode())")
+    if dev.type == "cuda" and not torch.backends.cuda.is_built():
+        raise RuntimeError("this build of PyTorch has no CUDA, so it cannot trace a model "
+                           "on a fake cuda device: pass device='cpu' here, or trace on a "
+                           "build with CUDA (no card needed)")
+    return dev
 
 
 def _save_weight_products(ctx, op, *args, **kwargs):

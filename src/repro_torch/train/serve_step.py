@@ -20,6 +20,19 @@ def make_prefill_step(model: Model, cache_len: int, ctx: Ctx | None = None):
     return prefill_step
 
 
+def make_forward_step(model: Model, ctx: Ctx | None = None):
+    """A full-sequence forward (the JAX package's prefill dry-run shape):
+    ``model.apply`` over every position, then the last position's logits
+    (B, V). Unlike ``prefill`` it unembeds every position and keeps no
+    cache."""
+    ctx = ctx or Ctx()
+
+    def forward(tokens, memory=None):
+        return model.apply(tokens, ctx, memory)[:, -1]
+
+    return forward
+
+
 def make_decode_step(model: Model, ctx: Ctx | None = None):
     ctx = ctx or Ctx()
 

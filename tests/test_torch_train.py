@@ -342,16 +342,31 @@ def test_fault_module_is_a_copy_of_the_reference():
     assert "repro/train/fault.py" in port[2] and port[4] == ""
 
 
+def _operator_dispatch(module, op, wrapper, plain):
+    """The operator repro_torch::<op> runs ``wrapper`` (the kernel) on a
+    CUDA tensor and ``plain`` on a CPU tensor: its registered kernels, and
+    the calls in kernels/<module>.py's registrations."""
+    for key in ("CUDA", "CPU"):
+        assert torch._C._dispatch_has_kernel_for_dispatch_key(f"repro_torch::{op}", key)
+    src = (ROOT / "src" / "repro_torch" / "kernels" / f"{module}.py").read_text()
+    cuda = src[src.index(f'"repro_torch::{op}"'):]
+    cuda = cuda[:cuda.index("\n\n\n")]
+    assert f"return {wrapper}(" in cuda
+    cpu = src[src.index(f"@{op}_op.register_kernel(\"cpu\")"):]
+    assert f"ref.{plain}(" in cpu[:cpu.index("\n\n\n")]
+
+
 def test_rglru_runs_its_backward_kernel_on_the_card():
     """ops.rglru_scan under autograd goes through ops.RGLRU, whose backward
     is K3's backward kernel on a CUDA tensor: no refusal is left, and RGLRU
-    dispatches on the device to rglru_scan_fwd/rglru_scan_bwd or their plain
-    versions."""
+    calls the operators rglru_scan_fwd/rglru_scan_bwd, which dispatch on the
+    device to the kernels or their plain versions."""
     src = (ROOT / "src" / "repro_torch" / "kernels" / "ops.py").read_text()
     assert "_no_backward" not in src and "RGLRU.apply(a, b)" in src
     body = src[src.index("class RGLRU("):src.index("def rglru_scan(")]
-    assert "rglru_scan_fwd(" in body and "rglru_scan_bwd " in body
-    assert "ref.rglru_scan_oracle(" in body and "ref.rglru_scan_bwd_oracle" in body
+    assert "_ops.rglru_scan_fwd(" in body and "_ops.rglru_scan_bwd(" in body
+    _operator_dispatch("rglru", "rglru_scan_fwd", "rglru_scan_fwd", "rglru_scan_oracle")
+    _operator_dispatch("rglru", "rglru_scan_bwd", "rglru_scan_bwd", "rglru_scan_bwd_oracle")
     a = torch.full((1, 4, 8), 0.5, requires_grad=True)
     h = ops.rglru_scan(a, torch.zeros(1, 4, 8))
     assert type(h.grad_fn).__name__ == "RGLRUBackward"
@@ -361,12 +376,17 @@ def test_ssd_runs_its_backward_kernel_on_the_card():
     """ops.ssd under autograd goes through ops.SSD, whose backward is K2's
     backward kernel on a CUDA tensor: no _no_backward call for ssd is left,
     and SSD dispatches on the device to ssd_fwd/ssd_bwd or their plain
-    versions."""
+    versions: SSD calls the operators ssd_fwd_saved (the card's forward,
+    which keeps the kernel's scratch for the backward) or ssd_fwd, and
+    ssd_bwd, which dispatch on the device."""
     src = (ROOT / "src" / "repro_torch" / "kernels" / "ops.py").read_text()
     assert '_no_backward("ssd"' not in src and "SSD.apply(x, dt, A, B, C, chunk)" in src
     body = src[src.index("class SSD("):src.index("def ssd(")]
-    assert "ssd_fwd(" in body and "ssd_bwd(" in body
-    assert "ref.ssd_oracle(" in body and "ref.ssd_bwd_oracle(" in body
+    assert "_ops.ssd_fwd_saved(" in body and "_ops.ssd_fwd(" in body
+    assert "_ops.ssd_bwd(" in body
+    _operator_dispatch("ssd", "ssd_fwd", "ssd_fwd", "ssd_oracle")
+    _operator_dispatch("ssd", "ssd_bwd", "ssd_bwd", "ssd_bwd_oracle")
+    assert torch._C._dispatch_has_kernel_for_dispatch_key("repro_torch::ssd_fwd_saved", "CUDA")
     x = torch.zeros(1, 4, 2, 16, requires_grad=True)
     y, _ = ops.ssd(x, torch.zeros(1, 4, 2), torch.zeros(2), torch.zeros(1, 4, 8),
                    torch.zeros(1, 4, 8))
