@@ -181,7 +181,31 @@ a kernel's plain version:
              Then what one card cannot run: dbrx-132b's training step at all
              40 layers and llama-3.2-vision-90b's prefill at all 100, each
              held exactly to the line through two shallow captures (1 and 2
-             layers; 5 and 10)
+             layers; 5 and 10). Then rank 0's program under a mesh
+             (core.capture_sharded_step over the rank's local shards, a
+             fake process group): phase 8's gemma3-4b prefill on (2, 4),
+             whose K1 nodes times its 8 ranks equal the launches phase 8
+             counted, and the forward step of gemma3-4b and qwen3-8b at full
+             depth on the production mesh (16, 16) and of qwen3-8b on
+             (2, 16, 16): one K1 node a layer, no allocation and no launch,
+             the FLOPs a rank and each collective's count and bytes printed
+  8. mesh    the serving path sharded over a DeviceMesh under the default
+             ParallelConfig's rules (tp, fsdp, sequence parallel), every
+             rank simulated on the card by LocalTensorMode
+             (parallel.mesh.simulated_ranks), so K1 launches once a layer
+             for each rank on its local heads: gemma3-4b at full width and
+             depth on (2, 4) (B 4 x 2048, 2 q heads over 1 kv head a rank,
+             272 launches) in bf16 and as one superblock (6 layers) in f32,
+             and qwen3-8b at full width and 2 layers on (16, 16) (256 ranks,
+             B 16, 2 q heads a rank over its 8 kv heads whole on every rank;
+             512 launches) in bf16, and in f32 on (2, 16) (32 ranks, the
+             same heads a rank; 64 launches); each
+             sharded prefill's logits and layer 0's k cache against the
+             unsharded prefill of the same weights on the card, bf16 within
+             DECODE_RTOL and f32 within 1e-3 of the largest value, the
+             whole logits the same on every rank (and on 8 ranks the bf16
+             cache within one bf16 ulp, CACHE_RTOL, in f32); the seconds of
+             each run
 Prints the kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -2467,6 +2491,137 @@ def phase_train(torch, card, arch, count_flops=False):
 
 
 # ---------------------------------------------------------------------------
+# mesh (phase 8)
+# ---------------------------------------------------------------------------
+
+# the serving path under a mesh: every rank of the mesh simulated in this
+# process on the one card (parallel.mesh.simulated_ranks, LocalTensorMode),
+# so each K1 call launches once for each rank. (arch, layers or None for all,
+# mesh, batch, prompt, dtype, rule): the sharded prefill's logits against the
+# unsharded prefill of the same weights, within rule x max |logit|: bf16
+# rounds differently where the ranks sum partial products (PERF.md's bf16
+# rule, DECODE_RTOL), f32 only in summation order (1e-3). gemma3-4b on (2, 4):
+# 2 q heads and 1 kv head a rank; qwen3-8b on the production mesh (16, 16):
+# 2 q heads a rank and its 8 kv heads whole on every rank (the GQA trap), 16
+# sequences so that the batch splits over the data axis; its f32 check runs
+# on (2, 16), the same split of the heads: on (16, 16) each of the 16 data
+# ranks would gather the f32 weights whole over its embed dim (FSDP), 16 x
+# 4.1 GB, more than the card holds beside the rest
+MESH_RUNS = (
+    (ARCH, None, (2, 4), BATCH, PROMPT, "bfloat16", DECODE_RTOL),
+    (ARCH, 6, (2, 4), BATCH, PROMPT, "float32", 1e-3),
+    (QWEN, 2, (16, 16), 16, PROMPT, "bfloat16", DECODE_RTOL),
+    (QWEN, 2, (2, 16), BATCH, PROMPT, "float32", 1e-3),
+)
+MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+# the decode cache is bf16 whatever the params (attention.CACHE_DTYPE): an f32
+# k a summation order apart rounds to one bf16 ulp apart, 2^-7 of the largest.
+# Layer 0's k cache is checked up to CACHE_CHECK_RANKS ranks: whole on each of
+# qwen3-8b's 256 simulated ranks it would take 17 GB
+CACHE_RTOL, CACHE_CHECK_RANKS = 2.0 ** -7, 8
+
+
+def mesh_config(get_config, arch, layers):
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg
+    nsb = len(cfg.superblock)
+    return cfg.replace(name=f"{arch}-{layers}layer", num_layers=layers,
+                       sb_repeat=layers // nsb, remainder=cfg.remainder[:layers % nsb])
+
+
+def phase_mesh(torch, card):
+    """MESH_RUNS: each config's prefill sharded over its mesh under the
+    rules of the default ParallelConfig (tp, fsdp, sequence parallel), every
+    rank simulated on the card, against the unsharded prefill of the same
+    seeded weights and tokens. Launch counts are reset just before the
+    sharded prefill and read just after: K1 launches ranks x layers times
+    and no other kernel runs. Returns {path: launches and ms}."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import Model
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.mesh import make_mesh, simulated_ranks
+    from repro_torch.train.serve_step import make_prefill_step
+
+    import torch.distributed._local_tensor as local_tensor
+    log(f"[mesh] torch {torch.__version__}: LocalTensorMode "
+        f"{'present' if hasattr(local_tensor, 'LocalTensorMode') else 'MISSING'}")
+    counters = _launch_counters()
+    par = ParallelConfig()
+    out = {}
+    for arch, layers, shape, batch, seq, dtype, rtol in MESH_RUNS:
+        cfg = mesh_config(get_config, arch, layers)
+        world = math.prod(shape)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model(cfg, device="cuda", seed=SEED).to(getattr(torch, dtype))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device="cuda")
+        ref, ref_cache = make_prefill_step(model, seq)(tokens)
+        ref_k = ref_cache["layers"][0]["attn"]["k"] if world <= CACHE_CHECK_RANKS else None
+        del ref_cache
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t0
+        with simulated_ranks(world):
+            t0 = time.perf_counter()
+            mesh = make_mesh(shape, MESH_AXES[len(shape)])
+            sharding.shard_model(model, mesh, par)
+            inputs = sharding.shard_inputs({"tokens": tokens},
+                                           sharding.batch_specs(model, "prefill", batch, seq),
+                                           mesh, par)
+            prefill = make_prefill_step(model, seq, parallel=par, mesh=mesh)
+            torch.cuda.synchronize()
+            t_shard = time.perf_counter() - t0
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            logits, cache = prefill(inputs["tokens"])
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counters.items()}
+            got = logits.full_tensor()
+            got_k = cache["layers"][0]["attn"]["k"].full_tensor() if ref_k is not None else None
+            del logits, cache, inputs, prefill
+        # every rank holds the same whole logits: reconcile checks it, keeps one
+        got = got.reconcile()
+        err = (got.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        k_err, k_top = 0.0, 1.0
+        if ref_k is not None:
+            got_k = got_k.reconcile()
+            k_err = (got_k.float() - ref_k.float()).abs().max().item()
+            k_top = ref_k.float().abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        path = f"serve {cfg.name} {dtype} mesh {shape}"
+        want = {name: world * cfg.num_layers if name == "flash_attention" else 0
+                for name in counters}
+        log(f"[mesh] {path}: {world} ranks, B {batch} x S {seq}: unsharded prefill "
+            f"{t_ref:.1f} s (init included), sharding {t_shard:.1f} s, sharded prefill "
+            f"{t_prefill * 1e3:.1f} ms; launches {launches}; max |logit - unsharded| "
+            f"{err:.3e} of max |logit| {top:.3e} ({err / top:.2e}, rule {rtol:g}); "
+            + (f"layer 0's bf16 k cache {k_err:.3e} of {k_top:.3e} (rule "
+               f"{max(rtol, CACHE_RTOL):g}); " if ref_k is not None else "")
+            + f"peak {torch.cuda.max_memory_allocated() / 1e9:.1f} "
+            f"GB; {card}")
+        if launches != want:
+            fail(f"{path}: launches {launches}, want {want}")
+        k_rtol = max(rtol, CACHE_RTOL)
+        if not finite or tuple(got.shape) != tuple(ref.shape) or err > rtol * top \
+                or k_err > k_rtol * k_top:
+            fail(f"{path}: finite {finite}, shape {tuple(got.shape)} (want "
+                 f"{tuple(ref.shape)}), logits {err:.3e} > {rtol:g} x {top:.3e} or k cache "
+                 f"{k_err:.3e} > {k_rtol:g} x {k_top:.3e}")
+        out[path] = {"launches": launches, "prefill_ms": t_prefill * 1e3, "ranks": world,
+                     "layers": cfg.num_layers, "err": err, "max_logit": top,
+                     "config": cfg.name, "mesh": list(shape)}
+        del model, ref, ref_k, got, got_k
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # capture (phase 7)
 # ---------------------------------------------------------------------------
 
@@ -2486,6 +2641,13 @@ CAPTURED_TRAIN = (ARCH, SSM_ARCH, RG_ARCH)
 # parameters, ~1.6 TB of state) and llama-3.2-vision-90b's prefill at 100,
 # in whole superblocks of 5
 CAPTURE_DEEP = ((DBRX, "train", (1, 2, 40)), (LLAMA, "prefill", (5, 10, 100)))
+# rank 0's program under a mesh (parallel.mesh.fake_process_group, the trace
+# over the rank's local shards): (arch, step, mesh, batch) at PROMPT tokens a
+# sequence, full depth: the measured gemma3-4b mesh path of phase 8, and the
+# forward step on the production meshes (launch/mesh.py), 256 and 512 ranks,
+# one sequence a (pod, data) rank
+MESH_CAPTURES = ((ARCH, "prefill", (2, 4), BATCH), (ARCH, "forward", (16, 16), 16),
+                 (QWEN, "forward", (16, 16), 16), (QWEN, "forward", (2, 16, 16), 32))
 
 
 def count_flops_of(torch, fn):
@@ -2501,17 +2663,11 @@ def count_flops_of(torch, fn):
 def capture_path(torch, cfg, what):
     """Capture one prefill of `cfg` (BATCH x PROMPT, cache PROMPT + STEPS) or
     one training step (TRAIN_BATCH x TRAIN_SEQ, TRAIN_OPT, TRAIN_PAR) as the
-    serve and train phases run them, on fake cuda tensors. Returns the
-    capture's summary and seconds, its kernel nodes by launch counter, the
-    parameters, and CUDA's allocated and reserved bytes, allocations made and
-    launch counts before and after it."""
-    from repro_torch.configs.base import ParallelConfig
-    from repro_torch.core import capture_step, fake_mode
-    from repro_torch.models import Model
-    from repro_torch.train.optimizer import OptConfig
-    from repro_torch.train.serve_step import make_prefill_step
-    from repro_torch.train.train_step import init_train_state, make_train_step
-
+    serve and train phases run them, or rank 0 of a step under a mesh
+    (capture_mesh), on fake cuda tensors. Returns the capture's summary and
+    seconds, its kernel nodes by launch counter, the parameters, and CUDA's
+    allocated and reserved bytes, allocations made and launch counts before
+    and after it."""
     counters = _launch_counters()
 
     def device_state():
@@ -2522,6 +2678,32 @@ def capture_path(torch, cfg, what):
 
     before = device_state()
     t0 = time.perf_counter()
+    if "@" in what:
+        cap, n_params = capture_mesh(torch, cfg, what)
+    else:
+        cap, n_params = capture_one(torch, cfg, what)
+    seconds = time.perf_counter() - t0
+    nodes = {name: 0 for name in counters}
+    for op, n in cap.summary["kernel_nodes"].items():
+        nodes[KERNEL_OPS[op]] += n
+    summary = {k: cap.summary[k] for k in ("parsed_flops", "parsed_hbm_bytes", "n_nodes",
+                                           "kernel_nodes", "comm", "comm_bytes")}
+    return {"config": cfg.name, "what": what, "seconds": seconds, **summary,
+            "fx_nodes": cap.meta["fx_nodes"], "t_trace_s": cap.meta["t_trace_s"],
+            "kernel_launch_nodes": nodes, "params": n_params,
+            "world": cap.meta.get("world_size", 1),
+            "device_before": before, "device_after": device_state()}
+
+
+def capture_one(torch, cfg, what):
+    """(capture, parameters) of one prefill or training step on one card."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core import capture_step, fake_mode
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.serve_step import make_prefill_step
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
     batch, seq = (TRAIN_BATCH, TRAIN_SEQ) if what == "train" else (BATCH, PROMPT)
     with fake_mode():
         model = Model(cfg, trainable=what == "train", abstract=True)
@@ -2537,16 +2719,50 @@ def capture_path(torch, cfg, what):
             cap = capture_step(make_prefill_step(model, PROMPT + STEPS), (tokens, memory),
                                {"config": cfg.name})
         n_params = sum(p.numel() for p in model.parameters())
-    seconds = time.perf_counter() - t0
-    nodes = {name: 0 for name in counters}
-    for op, n in cap.summary["kernel_nodes"].items():
-        nodes[KERNEL_OPS[op]] += n
-    summary = {k: cap.summary[k] for k in ("parsed_flops", "parsed_hbm_bytes", "n_nodes",
-                                           "kernel_nodes")}
-    return {"config": cfg.name, "what": what, "seconds": seconds, **summary,
-            "fx_nodes": cap.meta["fx_nodes"], "t_trace_s": cap.meta["t_trace_s"],
-            "kernel_launch_nodes": nodes, "params": n_params,
-            "device_before": before, "device_after": device_state()}
+    return cap, n_params
+
+
+def capture_mesh(torch, cfg, what):
+    """(capture, parameters) of rank 0's program of a step under a mesh:
+    `what` is "<prefill or forward>@<mesh, as 2x16x16>:B<batch>"; a fake process
+    group of the mesh's ranks, the production mesh where the shape is one;
+    the model sharded under the default ParallelConfig's rules, the batch
+    split as batch_specs say, and the trace taken over rank 0's shards
+    (core.capture_sharded_step)."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core import capture_sharded_step, fake_mode
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import Model
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.mesh import fake_process_group, make_mesh
+    from repro_torch.train.serve_step import make_forward_step, make_prefill_step
+
+    step, rest = what.split("@")
+    shape, batch = rest.split(":B")
+    shape, batch = tuple(int(n) for n in shape.split("x")), int(batch)
+    par = ParallelConfig()
+    with fake_process_group(math.prod(shape)):
+        if shape in ((16, 16), (2, 16, 16)):
+            mesh = make_production_mesh(multi_pod=len(shape) == 3)
+        else:
+            mesh = make_mesh(shape, MESH_AXES[len(shape)])
+        with fake_mode():
+            model = Model(cfg, abstract=True)
+            sharding.shard_model(model, mesh, par)
+            tokens = torch.empty(batch, PROMPT, dtype=torch.long, device="cuda")
+            inputs = sharding.shard_inputs(
+                {"tokens": tokens}, sharding.batch_specs(model, "prefill", batch, PROMPT),
+                mesh, par)
+            fn = (make_prefill_step(model, PROMPT, parallel=par, mesh=mesh) if step == "prefill"
+                  else make_forward_step(model, parallel=par, mesh=mesh))
+            cap = capture_sharded_step(fn, model, [inputs["tokens"]], {"config": cfg.name})
+            n_params = sum(p.numel() for p in model.parameters())
+    return cap, n_params
+
+
+def mesh_what(step, mesh, batch):
+    """The `what` of a capture under a mesh (capture_mesh)."""
+    return f"{step}@{'x'.join(map(str, mesh))}:B{batch}"
 
 
 def capture_main(torch):
@@ -2581,6 +2797,8 @@ def capture_jobs(get_config):
         nsb = len(cfg.superblock)
         jobs += [(cfg.replace(name=f"{arch}-{L}layer", num_layers=L, sb_repeat=L // nsb), what)
                  for L in depths]
+    jobs += [(get_config(arch), mesh_what(step, mesh, batch))
+             for arch, step, mesh, batch in MESH_CAPTURES]
     return jobs
 
 
@@ -2606,7 +2824,7 @@ def roofline_ms(flops, nbytes):
     return max(t_ops, t_bytes), t_ops, t_bytes
 
 
-def phase_capture(torch, card, proc, measured, real_flops):
+def phase_capture(torch, card, proc, measured, real_flops, mesh_measured):
     """Read the capture process (start_captures) and hold its captures:
     (i) none changed CUDA's allocated or reserved bytes or made an
     allocation, and none moved a launch counter;
@@ -2615,8 +2833,12 @@ def phase_capture(torch, card, proc, measured, real_flops):
     FLOPs FlopCounterMode counted around a real prefill and train step
     (`real_flops`: {(config, what): FLOPs}) equal the captured
     parsed_flops; the graph's roofline is not above the measured time; the
-    full-depth captures are linear in depth against the two shallow ones.
-    Returns the captures."""
+    full-depth captures are linear in depth against the two shallow ones;
+    (iv) rank 0's program under a mesh has one K1 node a layer, and on the
+    mesh phase's measured gemma3-4b path, its K1 nodes times the ranks equal
+    the launches the simulated run counted (`mesh_measured`, phase_mesh's);
+    its FLOPs, collectives and their bytes are printed. Returns the
+    captures."""
     if proc.wait(timeout=900) != 0:
         with open(CAPTURE_OUT + ".log") as f:
             fail(f"capture process exited {proc.returncode}:\n{f.read()[-4000:]}")
@@ -2670,6 +2892,28 @@ def phase_capture(torch, card, proc, measured, real_flops):
                if what == "train" else "")
             + f"): {cf['seconds']:.1f} s, {cf['n_nodes']} graph nodes, {cf['parsed_flops']:.6e} "
             f"FLOPs = flops({d1}) + {step} x (flops({d2}) - flops({d1})), exactly")
+    from repro_torch.configs.registry import get_config
+    runs = {(r["config"], tuple(r["mesh"])): r for r in mesh_measured.values()}
+    for arch, step, shape, batch in MESH_CAPTURES:
+        c = by_key[(arch, mesh_what(step, shape, batch))]
+        layers = get_config(arch).num_layers
+        comm = {k: f"{v['count']} ({v['bytes'] / 1e6:.1f} MB)" for k, v in c["comm"].items()}
+        log(f"[capture] rank 0 of {arch} {step} on mesh {shape} ({c['world']} ranks, B "
+            f"{batch} x S {PROMPT}): {c['parsed_flops']:.6e} FLOPs a rank, COMM_COLL "
+            f"{comm}, {c['comm_bytes'] / 1e6:.1f} MB in all; kernel nodes {c['kernel_nodes']}")
+        if c["world"] != math.prod(shape) or c["kernel_launch_nodes"] != {
+                name: layers if name == "flash_attention" else 0
+                for name in c["kernel_launch_nodes"]}:
+            fail(f"capture {arch} {step} mesh {shape}: world {c['world']}, kernel nodes "
+                 f"{c['kernel_launch_nodes']}")
+        run = runs.get((arch, shape))
+        if run and step == "prefill" and batch == BATCH:
+            want = run["launches"]["flash_attention"]
+            if c["kernel_launch_nodes"]["flash_attention"] * c["world"] != want:
+                fail(f"capture {arch} {step} mesh {shape}: {c['kernel_launch_nodes']} K1 nodes "
+                     f"x {c['world']} ranks, the simulated run launched {want}")
+            log(f"[capture] rank 0 of {arch} {step} on mesh {shape}: K1 nodes x ranks = "
+                f"the simulated run's launches ({want})")
     return caps
 
 
@@ -2770,6 +3014,8 @@ def main(argv=None):
                   for arch in CROSS_ARCHS}
     cross_train = {arch: timed(f"train {arch}", phase_train, torch, card, arch)
                    for arch in CROSS_ARCHS}
+    # the serving path under a mesh: every rank simulated on the card
+    mesh_runs = timed("mesh", phase_mesh, torch, card)
     # the capture of every measured path against its run
     measured = {(serve_config(get_config, a).name, "prefill"): (n["launches"], n["prefill_ms"])
                 for a, n in by_arch.items()}
@@ -2777,12 +3023,14 @@ def main(argv=None):
         measured[(t["config"], "train")] = (t["launches_per_step"], t["step_ms"])
     real_flops = {(serve_config(get_config, ARCH).name, "prefill"): by_arch[ARCH]["flops"],
                   (train["config"], "train"): train["flops"]}
-    timed("capture", phase_capture, torch, card, captures, measured, real_flops)
+    timed("capture", phase_capture, torch, card, captures, measured, real_flops, mesh_runs)
     flash["launches_by_path"] = {f"serve {a}": n["launches"]["flash_attention"]
                                  for a, n in by_arch.items() if n["launches"]["flash_attention"]}
     trained_on_k1 = {ARCH: train, RG_ARCH: rg_train, **dense_train, **moe_train, **cross_train}
     for a, t in trained_on_k1.items():
         flash["launches_by_path"][f"train {a}"] = t["launches"]["flash_attention"]
+    for path, r in mesh_runs.items():
+        flash["launches_by_path"][path] = r["launches"]["flash_attention"]
     flash["launches"] = sum(flash["launches_by_path"].values())
     flash_bwd["launches_by_path"] = {f"train {a}": t["launches"]["flash_attention_bwd"]
                                      for a, t in trained_on_k1.items()}

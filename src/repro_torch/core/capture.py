@@ -22,6 +22,14 @@ Typical use, with no card::
 A ``cuda`` trace needs a build of PyTorch with CUDA, though no card
 (``Model(..., abstract=True)`` says why); on a build without, trace on ``cpu``: the
 graph holds the same kernel nodes.
+
+A step under a mesh is captured as one rank's program
+(``capture_sharded_step``): under a fake process group
+(``parallel.mesh.fake_process_group``) the trace takes the rank's local
+shards of the parameters and inputs and wraps them as DTensors inside the
+step, so its nodes are the rank's products at local shapes and the
+collectives between ranks. ``capture_step`` refuses DTensor arguments: a
+trace over them is the global program, whose FLOPs are those of all ranks.
 """
 from __future__ import annotations
 
@@ -31,9 +39,13 @@ from collections import Counter
 from typing import Dict, Optional
 from unittest import mock
 
+import torch.distributed as dist
+from torch import nn
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor
 from torch.fx.experimental import proxy_tensor
 from torch.fx.experimental.proxy_tensor import make_fx
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch.core import chakra
 from repro_torch.core.convert import fx_to_chakra
@@ -102,6 +114,10 @@ def capture_step(step_fn, example_args, meta: Optional[Dict] = None) -> CaptureR
     closes over) are made inside ``fake_mode()``: nothing is allocated on a
     device and nothing runs there. The meta records the trace's and the
     conversion's seconds."""
+    if any(isinstance(x, DTensor) for x in tree_flatten(example_args)[0]):
+        raise ValueError("capture_step traces local tensors: a trace over DTensor "
+                         "arguments counts the FLOPs of every rank; capture a sharded "
+                         "step with capture_sharded_step")
     t0 = time.perf_counter()
     # make_fx computes an op on one-element constants for real, on their
     # device (a bias correction moved to the card: an allocation there and a
@@ -119,3 +135,41 @@ def capture_step(step_fn, example_args, meta: Optional[Dict] = None) -> CaptureR
     graph.meta.update(meta)
     return CaptureResult(meta=meta, graph_text=gm.code, summary=summarize(graph),
                          graph=graph)
+
+
+def capture_sharded_step(step_fn, model, inputs, meta: Optional[Dict] = None) -> CaptureResult:
+    """One rank's program of ``step_fn(*inputs)``, a step made under a mesh
+    (``mesh=``) over ``model`` sharded by ``parallel.sharding.shard_model``,
+    with ``inputs`` DTensors (``shard_inputs``), all made in ``fake_mode()``
+    under a fake process group. The trace takes the rank's local shards of
+    the parameters and inputs and wraps them back into DTensors inside the
+    step; what the step returns is taken local. The meta records the
+    world size."""
+    params = [(mod, key, p) for mod in model.modules()
+              for key, p in mod._parameters.items() if isinstance(p, DTensor)]
+    if not params:
+        raise ValueError("the model has no DTensor parameters: shard it first")
+
+    def wrap(local, like):
+        return DTensor.from_local(local, like.device_mesh, like.placements,
+                                  run_check=False, shape=like.shape, stride=like.stride())
+
+    leaves, spec = tree_flatten(tuple(inputs))
+
+    def rank_step(param_locals, input_locals):
+        for (mod, key, p), local in zip(params, param_locals):
+            mod._parameters[key] = nn.Parameter(wrap(local, p), requires_grad=False)
+        try:
+            out = step_fn(*tree_unflatten(
+                [wrap(x, like) if isinstance(like, DTensor) else x
+                 for x, like in zip(input_locals, leaves)], spec))
+        finally:
+            for mod, key, p in params:
+                mod._parameters[key] = p
+        return tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t, out)
+
+    meta = dict(meta or {})
+    meta["world_size"] = dist.get_world_size()
+    return capture_step(rank_step, ([p.to_local() for _, _, p in params],
+                                    [x.to_local() if isinstance(x, DTensor) else x
+                                     for x in leaves]), meta)

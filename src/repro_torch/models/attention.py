@@ -13,6 +13,11 @@ Layouts: q (B, S, H, hd); k/v (B, S, KV, hd). GQA groups q as
 A cross layer takes its keys and values from ``memory`` (B, M, D), gets no
 rope, and scales its output by tanh of an f32 scalar ``gate`` (zero at
 init, so the layer adds nothing until the gate moves).
+
+Under a mesh q, k and v are DTensors constrained to (batch, heads) at the
+JAX package's call sites, and K1 runs on each rank's local heads, as
+``shard_map`` would run it (``_local_attention``): never on the DTensors,
+whose (KV, G) views would make every rank gather and compute all heads.
 """
 from __future__ import annotations
 
@@ -20,11 +25,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import CROSS_ATTN, ENC_ATTN, GLOBAL_ATTN, LOCAL_ATTN
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.models.layers import ParamSpec, rms_norm, rms_norm_specs, rope
+from repro_torch.models.layers import (ParamSpec, local_product, rms_norm, rms_norm_specs,
+                                       rope)
 
 CACHE_DTYPE = torch.bfloat16      # the decode cache is bf16 whatever the params
 
@@ -32,17 +39,17 @@ CACHE_DTYPE = torch.bfloat16      # the decode cache is bf16 whatever the params
 def attention_specs(cfg, cross: bool = False):
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = {
-        "wq": ParamSpec((d, h, hd)),
-        "wk": ParamSpec((d, kv, hd)),
-        "wv": ParamSpec((d, kv, hd)),
-        "wo": ParamSpec((h, hd, d)),
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed")),
     }
     if cfg.qk_norm:
         s["qnorm"] = rms_norm_specs(hd)
         s["knorm"] = rms_norm_specs(hd)
     if cross:
         # the tanh gate of a cross layer: f32 whatever the params' dtype
-        s["gate"] = ParamSpec((), dtype=torch.float32, init="zeros")
+        s["gate"] = ParamSpec((), (), dtype=torch.float32, init="zeros")
     return s
 
 
@@ -69,14 +76,19 @@ def _einsum(eq, a, b):
     return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
-def _project_qkv(p, x, memory, cfg, rope_theta, positions, kind):
+def _project_qkv(p, x, memory, cfg, ctx, rope_theta, positions, kind):
     """q from x; k and v from ``memory`` for a cross layer, else from x.
     Every kind but cross is roped. The memory's products promote its dtype
     with the weights' (a bf16 memory meets f32 weights as f32), as in JAX."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     src = x if memory is None else memory
-    k = _einsum("bsd,dhk->bshk", src, p["wk"])
-    v = _einsum("bsd,dhk->bshk", src, p["wv"])
+    if isinstance(x, DTensor):
+        q, k, v = (local_product("bsd,dhk->bshk", a, p[w], ctx, ("batch", "seq", None),
+                                 (None, heads, None)) for a, w, heads in
+                   ((x, "wq", "heads"), (src, "wk", "kv_heads"), (src, "wv", "kv_heads")))
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        k = _einsum("bsd,dhk->bshk", src, p["wk"])
+        v = _einsum("bsd,dhk->bshk", src, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["qnorm"]["scale"], cfg.norm_eps)
         k = rms_norm(k, p["knorm"]["scale"], cfg.norm_eps)
@@ -86,8 +98,12 @@ def _project_qkv(p, x, memory, cfg, rope_theta, positions, kind):
     return q, k, v
 
 
-def _out_proj(p, o, gated=False):
-    out = _einsum("bshk,hkd->bsd", o, p["wo"])
+def _out_proj(p, o, ctx, gated=False):
+    if isinstance(o, DTensor):
+        out = local_product("bshk,hkd->bsd", o, p["wo"], ctx, ("batch", None, "heads", None),
+                            ("heads", None, None))
+    else:
+        out = _einsum("bshk,hkd->bsd", o, p["wo"])
     if gated:
         out = out * torch.tanh(p["gate"]).to(out.dtype)
     return out
@@ -109,13 +125,52 @@ def attention_apply(p, x, cfg, ctx, kind, memory=None, positions=None):
     B, S, D = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, x, memory if kind == CROSS_ATTN else None, cfg,
+    q, k, v = _project_qkv(p, x, memory if kind == CROSS_ATTN else None, cfg, ctx,
                            _theta(cfg, kind), positions, kind)
+    # seq stays unsharded here (None, not "seq"): sequence parallelism
+    # applies to the residual stream only
+    q = ctx.shard(q, "batch", None, "heads", None)
+    k = ctx.shard(k, "batch", None, "kv_heads", None)
+    v = ctx.shard(v, "batch", None, "kv_heads", None)
     window = cfg.local_window if kind == LOCAL_ATTN else 0
-    o = ops.flash_attention(_group(q, cfg.num_kv_heads), k, v,
-                            causal=kind in (GLOBAL_ATTN, LOCAL_ATTN), window=window,
-                            scale=1.0 / math.sqrt(cfg.head_dim))
-    return _out_proj(p, _ungroup(o), gated=kind == CROSS_ATTN), (k, v)
+
+    def attend(qg, k, v):
+        return ops.flash_attention(qg, k, v, causal=kind in (GLOBAL_ATTN, LOCAL_ATTN),
+                                   window=window, scale=1.0 / math.sqrt(cfg.head_dim))
+
+    if isinstance(q, DTensor):
+        o = _local_attention(attend, q, k, v, cfg.num_kv_heads)
+    else:
+        o = _ungroup(attend(_group(q, cfg.num_kv_heads), k, v))
+    o = ctx.shard(o, "batch", None, "heads", None)
+    return _out_proj(p, o, ctx, gated=kind == CROSS_ATTN), (k, v)
+
+
+def _local_attention(attend, q, k, v, kv_heads):
+    """``attend`` (K1) on each rank's local shards of q (B,S,H,hd) and k/v
+    (B,S,KV,hd), DTensors; o back as a DTensor placed as q.
+
+    A rank holds q heads [r*Hl, (r+1)*Hl), Hl = H/m over the m shards of the
+    heads dim, and q head i attends to kv head i // G (G = H/KV). Where m
+    divides KV too, its local kv heads are those its q heads need. Where it
+    does not, k and v are whole on every rank (the GQA trap: qwen3-8b's KV 8
+    on a 16-wide model axis), so each kv head is repeated G/Gl times, Gl =
+    gcd(G, Hl), before taking the rank's shard: then the rank's Hl/Gl kv
+    heads serve its q heads in groups of Gl, each its own."""
+    mesh, pl = q.device_mesh, q.placements
+    H = q.shape[2]
+    m = math.prod(mesh.size(i) for i, p in enumerate(pl) if p == Shard(2))
+    hl, g = H // m, H // kv_heads
+    gl = math.gcd(g, hl)
+    if g // gl > 1:
+        b, s, kvh, hd = k.shape
+        k, v = (t[:, :, :, None].expand(b, s, kvh, g // gl, hd).reshape(b, s, H // gl, hd)
+                for t in (k, v))
+    k, v = k.redistribute(mesh, pl).to_local(), v.redistribute(mesh, pl).to_local()
+    ql = q.to_local()
+    b, s, _, hd = ql.shape
+    o = attend(ql.reshape(b, s, hl // gl, gl, hd), k, v)
+    return DTensor.from_local(o.reshape(b, s, hl, hd), mesh, pl, run_check=False)
 
 
 def _pad_seq(x, n):
@@ -126,7 +181,12 @@ def _pad_seq(x, n):
 def pack_prefill_cache(k, v, kind, cfg, cache_len):
     """Arrange full-sequence roped (k, v) (B,S,KV,hd) into the decode cache
     layout of attn_cache_specs (ring order for local windows; a cross
-    layer's cache is the memory's k/v, its length the memory's)."""
+    layer's cache is the memory's k/v, its length the memory's). DTensors,
+    whose seq dim is never sharded, are packed shard by shard."""
+    if isinstance(k, DTensor):
+        mesh, pl = k.device_mesh, k.placements
+        c = pack_prefill_cache(k.to_local(), v.to_local(), kind, cfg, cache_len)
+        return {n: DTensor.from_local(t, mesh, pl, run_check=False) for n, t in c.items()}
     S = k.shape[1]
     if kind == LOCAL_ATTN:
         W = min(cfg.local_window, cache_len)
@@ -160,7 +220,7 @@ def attn_cache_specs(cfg, kind, batch, cache_len):
     else:
         L = cache_len
     spec = ParamSpec((batch, L, cfg.num_kv_heads, cfg.head_dim),
-                     dtype=CACHE_DTYPE, init="zeros")
+                     ("batch", "cache", "kv_heads", None), dtype=CACHE_DTYPE, init="zeros")
     return {"k": spec, "v": spec}
 
 
@@ -178,11 +238,11 @@ def attention_decode(p, x, cache, pos: int, cfg, ctx, kind):
             q = rms_norm(q, p["qnorm"]["scale"], cfg.norm_eps)
         o = _decode_attention(_group(q, cfg.num_kv_heads), cache["k"], cache["v"],
                               None, scale)
-        return _out_proj(p, _ungroup(o), gated=True), cache
+        return _out_proj(p, _ungroup(o), ctx, gated=True), cache
     if kind == ENC_ATTN:
         raise ValueError("an encoder layer has no decode step")
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, None, cfg, _theta(cfg, kind), positions, kind)
+    q, k_new, v_new = _project_qkv(p, x, None, cfg, ctx, _theta(cfg, kind), positions, kind)
     qg = _group(q, cfg.num_kv_heads)                    # (B,1,KV,G,hd)
 
     k_cache, v_cache = cache["k"], cache["v"]
@@ -199,7 +259,7 @@ def attention_decode(p, x, cache, pos: int, cfg, ctx, kind):
     else:
         valid = slots <= pos
     o = _decode_attention(qg, k_cache, v_cache, valid, scale)
-    return _out_proj(p, _ungroup(o)), cache
+    return _out_proj(p, _ungroup(o), ctx), cache
 
 
 def _decode_attention(qg, k_cache, v_cache, valid, scale):

@@ -1,8 +1,10 @@
 """Common layers + the ParamSpec system (counterpart of ``repro/models/layers.py``).
 
-Every parameter is declared once as a ParamSpec (shape, dtype, init) in the
-JAX package's layout; ``ParamTree`` materializes a nested dict of specs into
-an ``nn.Module`` of raw ``nn.Parameter``s with the same nesting, so the
+Every parameter is declared once as a ParamSpec (shape, logical axes, dtype,
+init) in the JAX package's layout; the logical axes (a name or None per dim)
+are what ``parallel/sharding.py`` maps onto a mesh. ``ParamTree``
+materializes a nested dict of specs into an ``nn.Module`` of raw
+``nn.Parameter``s with the same nesting, so the
 functional layers below index it as ``p["wq"]`` exactly as the JAX code
 indexes its pytree, and the weight bridge is a 1:1 copy. With ``abstract``
 it takes ``abstract_from_specs``'s empty tensors instead, which a trace
@@ -16,14 +18,23 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple
+    logical_axes: tuple | None = None   # logical axis name (or None) per dim; None: no names
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"          # normal | zeros | ones | rglru_a
     scale: float = 1.0            # stddev multiplier for "normal"
+
+    def __post_init__(self):
+        axes = ((None,) * len(self.shape) if self.logical_axes is None
+                else tuple(self.logical_axes))
+        if len(axes) != len(self.shape):
+            raise ValueError(f"logical axes {axes} do not match shape {self.shape}")
+        object.__setattr__(self, "logical_axes", axes)
 
     def materialize(self, generator: torch.Generator, device) -> torch.Tensor:
         if self.init == "zeros":
@@ -57,14 +68,17 @@ def abstract_from_specs(specs, device):
 class ParamTree(nn.Module):
     """A nested dict of ParamSpecs as a module of raw parameters: seeded from
     ``generator``, or with ``abstract`` empty (``abstract_from_specs``).
-    They take grads only when ``trainable`` (serving keeps them frozen)."""
+    They take grads only when ``trainable`` (serving keeps them frozen).
+    ``param_specs`` keeps the spec of each parameter of this module."""
 
     def __init__(self, specs: dict, generator: torch.Generator | None, device,
                  trainable: bool = False, abstract: bool = False):
         super().__init__()
+        self.param_specs = {}
         for key in sorted(specs):
             spec = specs[key]
             if isinstance(spec, ParamSpec):
+                self.param_specs[key] = spec
                 value = (abstract_from_specs(spec, device) if abstract
                          else spec.materialize(generator, device))
                 self.register_parameter(key, nn.Parameter(value, requires_grad=trainable))
@@ -82,6 +96,40 @@ class ParamTree(nn.Module):
 # functional layers
 # ---------------------------------------------------------------------------
 
+def local_product(eq, x, w, ctx, x_axes, w_axes):
+    """The einsum ``eq`` of an activation x and a weight w, DTensors under a
+    mesh, as GSPMD runs a dot under the rules: w redistributed to what
+    ``w_axes`` resolve to (an FSDP weight gathered over its embed dim), x to
+    ``x_axes`` except over a mesh axis that w takes for another dim, and
+    each rank's product of its local shards. An output dim is placed as the
+    operand dim it comes from; a mesh axis that shards a contracted dim of
+    both leaves the output Partial(sum), which the next constraint reduces.
+    Left to DTensor, einsum's flattened (h, k) dim can be sharded where h
+    cannot (KV 2 over a 4-wide model axis), and the view back then fails."""
+    w = ctx.shard(w, *w_axes)
+    x = ctx.shard(x, *x_axes)
+    (xs, ws), out = eq.split("->")[0].split(","), eq.split("->")[1]
+    mesh = x.device_mesh
+    xp = [Replicate() if a.is_shard() and b.is_shard() and xs[a.dim] != ws[b.dim] else a
+          for a, b in zip(x.placements, w.placements)]
+    x = x.redistribute(mesh, xp)
+    pl = []
+    for a, b in zip(x.placements, w.placements):
+        dims = {s[p.dim] for s, p in ((xs, a), (ws, b)) if p.is_shard()}
+        if not dims:
+            pl.append(Replicate())
+        elif len(dims) == 1 and (d := dims.pop()) in out:
+            pl.append(Shard(out.index(d)))
+        elif a.is_shard() and b.is_shard():
+            pl.append(Partial())
+        else:
+            raise ValueError(f"{eq}: one operand alone is sharded over contracted dim "
+                             f"{dims}: {x.placements} x {w.placements}")
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y = torch.einsum(eq, x.to_local().to(dt), w.to_local().to(dt))
+    return DTensor.from_local(y, mesh, pl, run_check=False)
+
+
 def rms_norm(x, scale, eps=1e-6):
     # variance in f32, elementwise product in the input dtype (as the JAX layer)
     var = x.float().square().mean(dim=-1, keepdim=True)
@@ -89,8 +137,8 @@ def rms_norm(x, scale, eps=1e-6):
     return x * inv * (1.0 + scale).to(x.dtype)
 
 
-def rms_norm_specs(dim):
-    return {"scale": ParamSpec((dim,), init="zeros")}
+def rms_norm_specs(dim, axes=(None,)):
+    return {"scale": ParamSpec((dim,), axes, init="zeros")}
 
 
 def soft_cap(x, cap):
@@ -115,30 +163,52 @@ def rope(x, positions, theta):
 
 def mlp_specs(d_model, d_ff):
     return {
-        "wi": ParamSpec((d_model, d_ff)),
-        "wg": ParamSpec((d_model, d_ff)),
-        "wo": ParamSpec((d_ff, d_model)),
+        "wi": ParamSpec((d_model, d_ff), ("embed", "ff")),
+        "wg": ParamSpec((d_model, d_ff), ("embed", "ff")),
+        "wo": ParamSpec((d_ff, d_model), ("ff", "embed")),
     }
 
 
-def mlp_apply(p, x, act):
-    h = torch.einsum("bsd,df->bsf", x, p["wi"])
-    g = torch.einsum("bsd,df->bsf", x, p["wg"])
+def mlp_apply(p, x, act, ctx=None):
+    if isinstance(x, DTensor):
+        h, g = (local_product("bsd,df->bsf", x, p[w], ctx, ("batch", "seq", None),
+                              (None, "ff")) for w in ("wi", "wg"))
+    else:
+        h = torch.einsum("bsd,df->bsf", x, p["wi"])
+        g = torch.einsum("bsd,df->bsf", x, p["wg"])
     g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", h * g, p["wo"])
+    h = h * g
+    if ctx is None:
+        return torch.einsum("bsf,fd->bsd", h, p["wo"])
+    h = ctx.shard(h, "batch", "seq", "ff")
+    if isinstance(h, DTensor):
+        return local_product("bsf,fd->bsd", h, p["wo"], ctx, ("batch", "seq", "ff"),
+                             ("ff", None))
+    return torch.einsum("bsf,fd->bsd", h, p["wo"])
 
 
 # -- embedding ---------------------------------------------------------------
 
 def embed_specs(vocab, d_model):
-    return {"table": ParamSpec((vocab, d_model))}
+    return {"table": ParamSpec((vocab, d_model), ("vocab", "embed"))}
 
 
-def embed_apply(p, tokens, d_model):
-    h = p["table"][tokens]
-    return (h.float() * math.sqrt(d_model)).to(p["table"].dtype)
+def embed_apply(p, tokens, d_model, ctx=None):
+    table = p["table"]
+    if isinstance(table, DTensor):
+        # each rank looks its tokens up in its rows of the vocab-sharded
+        # table (the table gathered over its embed dim), the other rows
+        # masked to zero; the sum over the vocab's shards is exact
+        h = F.embedding(ctx.shard(tokens, "batch", None), ctx.shard(table, "vocab", None))
+    else:
+        h = table[tokens]
+    return (h.float() * math.sqrt(d_model)).to(table.dtype)
 
 
-def unembed_apply(table, h, cap=0.0):
-    logits = torch.einsum("bsd,vd->bsv", h, table).float()
+def unembed_apply(table, h, cap=0.0, ctx=None):
+    if isinstance(h, DTensor):
+        logits = local_product("bsd,vd->bsv", h, table, ctx, ("batch", "seq", None),
+                               ("vocab", None)).float()
+    else:
+        logits = torch.einsum("bsd,vd->bsv", h, table).float()
     return soft_cap(logits, cap)

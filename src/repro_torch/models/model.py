@@ -68,11 +68,20 @@ _MIXERS = {
 @dataclasses.dataclass
 class Ctx:
     """Per-call context, the counterpart of the JAX package's ``Ctx``: the
-    remat policy of the superblock body under autograd (none | dots | full).
-    The port has one implementation of each mixer and no mesh, so it has no
-    ``attn_impl``, no sharding hook and no ``moe_groups`` (MoE routes a
-    call's tokens as one group)."""
+    remat policy of the superblock body under autograd (none | dots | full)
+    and the sharding hook. ``shard_fn(x, axes)`` is None without a mesh;
+    under one it is ``parallel.sharding.make_shard_fn``'s, which
+    redistributes an activation to what its logical axes resolve to (the
+    counterpart of ``with_sharding_constraint``). The port has one
+    implementation of each mixer, so it has no ``attn_impl``, and no
+    ``moe_groups`` yet (MoE routes a call's tokens as one group)."""
     remat: str = "none"
+    shard_fn: Callable | None = None
+
+    def shard(self, x, *axes):
+        if self.shard_fn is None:
+            return x
+        return self.shard_fn(x, axes)
 
 
 # ---------------------------------------------------------------------------
@@ -81,7 +90,7 @@ class Ctx:
 
 def layer_specs(cfg: ModelConfig, kind: str):
     d = cfg.d_model
-    s: dict = {"ln1": rms_norm_specs(d)}
+    s: dict = {"ln1": rms_norm_specs(d, ("embed",))}
     if kind in _MIXERS:
         s["mixer"] = _MIXERS[kind].specs(cfg)
     elif kind in ATTENTION_KINDS:
@@ -89,10 +98,10 @@ def layer_specs(cfg: ModelConfig, kind: str):
     else:
         raise ValueError(f"unknown layer kind {kind!r}")
     if cfg.is_encdec and kind == GLOBAL_ATTN:
-        s["ln_x"] = rms_norm_specs(d)
+        s["ln_x"] = rms_norm_specs(d, ("embed",))
         s["xattn"] = attn.attention_specs(cfg, cross=True)
     if cfg.d_ff:
-        s["ln2"] = rms_norm_specs(d)
+        s["ln2"] = rms_norm_specs(d, ("embed",))
         if cfg.num_experts and kind != CROSS_ATTN:
             s["moe"] = moe.moe_specs(cfg)
         else:
@@ -100,14 +109,14 @@ def layer_specs(cfg: ModelConfig, kind: str):
     return s
 
 
-def _feed_forward(p, h, cfg):
+def _feed_forward(p, h, cfg, ctx):
     """h + the gated MLP or the MoE layer of rms_norm(h). Returns (h, aux):
     the MoE aux loss, or 0.0 where the layer has no experts."""
     m_in = rms_norm(h, p["ln2"]["scale"], cfg.norm_eps)
     if "moe" in p:
         m, aux = moe.moe_apply(p["moe"], m_in, cfg)
         return h + m, aux
-    return h + mlp_apply(p["mlp"], m_in, cfg.act), 0.0
+    return h + mlp_apply(p["mlp"], m_in, cfg.act, ctx), 0.0
 
 
 def apply_layer(p, h, kind, cfg, ctx, memory=None, positions=None,
@@ -136,7 +145,8 @@ def apply_layer(p, h, kind, cfg, ctx, memory=None, positions=None,
         h = h + out
     aux = 0.0
     if cfg.d_ff:
-        h, aux = _feed_forward(p, h, cfg)
+        h, aux = _feed_forward(p, h, cfg, ctx)
+    h = ctx.shard(h, "batch", "seq", "embed")
     return h, aux, (cache if collect_cache else None)
 
 
@@ -157,7 +167,7 @@ def apply_layer_decode(p, h, layer_cache, pos, kind, cfg, ctx):
                                        cfg, ctx, CROSS_ATTN)
         h = h + out
     if cfg.d_ff:
-        h, _ = _feed_forward(p, h, cfg)
+        h, _ = _feed_forward(p, h, cfg, ctx)
     return h, layer_cache
 
 
@@ -207,16 +217,25 @@ class Model(nn.Module):
         tree = functools.partial(ParamTree, generator=g, device=device,
                                  trainable=trainable, abstract=abstract)
         self.embed = tree(embed_specs(cfg.vocab_size, cfg.d_model))
-        self.final_norm = tree(rms_norm_specs(cfg.d_model))
+        self.final_norm = tree(rms_norm_specs(cfg.d_model, ("embed",)))
         if not cfg.tie_embeddings:
-            self.unembed = tree({"table": ParamSpec((cfg.vocab_size, cfg.d_model))})
+            self.unembed = tree({"table": ParamSpec((cfg.vocab_size, cfg.d_model),
+                                                    ("vocab", "embed"))})
         self.layers = nn.ModuleList(tree(layer_specs(cfg, kind))
                                     for kind in cfg.layer_kinds)
         if cfg.is_encdec:
             self.encoder = nn.Module()
             self.encoder.layers = nn.ModuleList(tree(layer_specs(cfg, ENC_ATTN))
                                                 for _ in range(cfg.encoder_layers))
-            self.encoder.final_norm = tree(rms_norm_specs(cfg.d_model))
+            self.encoder.final_norm = tree(rms_norm_specs(cfg.d_model, ("embed",)))
+
+    def param_specs(self) -> dict[str, ParamSpec]:
+        """{parameter name: its ParamSpec}, the logical axes those of the JAX
+        package's spec without the leading ``layers`` axis of a stacked
+        layer."""
+        return {f"{mod_name}.{key}": spec
+                for mod_name, mod in self.named_modules()
+                if isinstance(mod, ParamTree) for key, spec in mod.param_specs.items()}
 
     @property
     def device(self) -> torch.device:
@@ -266,7 +285,8 @@ class Model(nn.Module):
         self._check_memory(tokens, memory)
         if cfg.is_encdec:
             memory = self.encode(memory, ctx)
-        h = embed_apply(self.embed, tokens, cfg.d_model)
+        h = embed_apply(self.embed, tokens, cfg.d_model, ctx)
+        h = ctx.shard(h, "batch", "seq", "embed")
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         caches = []
 
@@ -308,7 +328,7 @@ class Model(nn.Module):
         embeddings (B, memory_len(), D), which an arch with cross-attention
         needs."""
         h, _, aux = self._trunk(tokens, ctx, memory)
-        logits = unembed_apply(self._table(), h, self.cfg.logits_soft_cap)
+        logits = unembed_apply(self._table(), h, self.cfg.logits_soft_cap, ctx)
         if not return_aux:
             return logits
         return logits, torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
@@ -346,7 +366,7 @@ class Model(nn.Module):
         caches hold the k/v of ``memory`` (of the encoder's output)."""
         h, caches, _ = self._trunk(tokens, ctx, memory, collect_cache=True,
                                    cache_len=cache_len)
-        logits = unembed_apply(self._table(), h[:, -1:], self.cfg.logits_soft_cap)
+        logits = unembed_apply(self._table(), h[:, -1:], self.cfg.logits_soft_cap, ctx)
         return logits[:, 0], {"pos": tokens.shape[1], "layers": caches}
 
     def init_cache(self, batch, cache_len):

@@ -26,10 +26,10 @@ from repro_torch.models.layers import ParamSpec
 def moe_specs(cfg):
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
     return {
-        "router": ParamSpec((d, e), dtype=torch.float32),
-        "wi": ParamSpec((e, d, f)),
-        "wg": ParamSpec((e, d, f)),
-        "wo": ParamSpec((e, f, d)),
+        "router": ParamSpec((d, e), ("embed", None), dtype=torch.float32),
+        "wi": ParamSpec((e, d, f), ("experts", "embed", "ff")),
+        "wg": ParamSpec((e, d, f), ("experts", "embed", "ff")),
+        "wo": ParamSpec((e, f, d), ("experts", "ff", "embed")),
     }
 
 

@@ -31,16 +31,16 @@ CACHE_CONV_DTYPE = torch.bfloat16    # the conv history is bf16 whatever the par
 def rglru_specs(cfg):
     d, dr = cfg.d_model, cfg.d_rnn
     return {
-        "w_x": ParamSpec((d, dr)),
-        "w_y": ParamSpec((d, dr)),
-        "conv_w": ParamSpec((cfg.rglru_conv_width, dr)),
-        "conv_b": ParamSpec((dr,), init="zeros"),
-        "w_a": ParamSpec((dr,), dtype=torch.float32),
-        "b_a": ParamSpec((dr,), init="zeros", dtype=torch.float32),
-        "w_i": ParamSpec((dr,), dtype=torch.float32),
-        "b_i": ParamSpec((dr,), init="zeros", dtype=torch.float32),
-        "lam": ParamSpec((dr,), init="rglru_a", dtype=torch.float32),
-        "w_o": ParamSpec((dr, d)),
+        "w_x": ParamSpec((d, dr), ("embed", "inner")),
+        "w_y": ParamSpec((d, dr), ("embed", "inner")),
+        "conv_w": ParamSpec((cfg.rglru_conv_width, dr), (None, "inner")),
+        "conv_b": ParamSpec((dr,), ("inner",), init="zeros"),
+        "w_a": ParamSpec((dr,), ("inner",), dtype=torch.float32),
+        "b_a": ParamSpec((dr,), ("inner",), init="zeros", dtype=torch.float32),
+        "w_i": ParamSpec((dr,), ("inner",), dtype=torch.float32),
+        "b_i": ParamSpec((dr,), ("inner",), init="zeros", dtype=torch.float32),
+        "lam": ParamSpec((dr,), ("inner",), init="rglru_a", dtype=torch.float32),
+        "w_o": ParamSpec((dr, d), ("inner", "embed")),
     }
 
 
@@ -99,8 +99,8 @@ def init_rglru_cache(cfg, batch):
     """ParamSpec tree of one layer's decode cache: f32 h, bf16 conv history."""
     dr = cfg.d_rnn
     return {
-        "h": ParamSpec((batch, dr), dtype=torch.float32, init="zeros"),
-        "conv": ParamSpec((batch, cfg.rglru_conv_width - 1, dr),
+        "h": ParamSpec((batch, dr), ("batch", "inner"), dtype=torch.float32, init="zeros"),
+        "conv": ParamSpec((batch, cfg.rglru_conv_width - 1, dr), ("batch", None, "inner"),
                           dtype=CACHE_CONV_DTYPE, init="zeros"),
     }
 

@@ -24,17 +24,17 @@ def ssd_specs(cfg):
     d, di, n, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     conv_dim = di + 2 * n
     return {
-        "in_x": ParamSpec((d, di)),
-        "in_z": ParamSpec((d, di)),
-        "in_B": ParamSpec((d, n)),
-        "in_C": ParamSpec((d, n)),
-        "in_dt": ParamSpec((d, nh)),
-        "conv_w": ParamSpec((cfg.conv_width, conv_dim)),
-        "conv_b": ParamSpec((conv_dim,), init="zeros"),
-        "dt_bias": ParamSpec((nh,), init="zeros", dtype=torch.float32),
-        "A_log": ParamSpec((nh,), init="ones", dtype=torch.float32),
-        "D": ParamSpec((nh,), init="ones", dtype=torch.float32),
-        "out_proj": ParamSpec((di, d)),
+        "in_x": ParamSpec((d, di), ("embed", "inner")),
+        "in_z": ParamSpec((d, di), ("embed", "inner")),
+        "in_B": ParamSpec((d, n), ("embed", None)),
+        "in_C": ParamSpec((d, n), ("embed", None)),
+        "in_dt": ParamSpec((d, nh), ("embed", "heads")),
+        "conv_w": ParamSpec((cfg.conv_width, conv_dim), (None, "inner")),
+        "conv_b": ParamSpec((conv_dim,), ("inner",), init="zeros"),
+        "dt_bias": ParamSpec((nh,), (None,), init="zeros", dtype=torch.float32),
+        "A_log": ParamSpec((nh,), (None,), init="ones", dtype=torch.float32),
+        "D": ParamSpec((nh,), (None,), init="ones", dtype=torch.float32),
+        "out_proj": ParamSpec((di, d), ("inner", "embed")),
     }
 
 
@@ -139,8 +139,9 @@ def init_ssd_cache(cfg, batch):
     conv_dim = cfg.d_inner + 2 * cfg.ssm_state
     return {
         "state": ParamSpec((batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
-                           dtype=torch.float32, init="zeros"),
-        "conv": ParamSpec((batch, cfg.conv_width - 1, conv_dim),
+                           ("batch", "heads", None, None), dtype=torch.float32,
+                           init="zeros"),
+        "conv": ParamSpec((batch, cfg.conv_width - 1, conv_dim), ("batch", None, "inner"),
                           dtype=CACHE_CONV_DTYPE, init="zeros"),
     }
 

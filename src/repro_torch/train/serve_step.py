@@ -2,38 +2,57 @@
 
 Counterpart of ``repro/train/serve_step.py``. PyTorch runs eagerly, so the
 step makers return plain closures where the JAX package returns functions
-to jit.
+to jit. Under a mesh (``mesh``, a ``DeviceMesh``, with ``parallel`` for
+the rules) the prefill and forward steps run on a model made sharded by
+``parallel.sharding.shard_model`` and take DTensor inputs
+(``shard_inputs``); decode under a mesh is not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import ParallelConfig
 from repro_torch.models.model import Ctx, Model
+from repro_torch.parallel import sharding
+from repro_torch.train.train_step import under_mesh
 
 
-def make_prefill_step(model: Model, cache_len: int, ctx: Ctx | None = None):
-    ctx = ctx or Ctx()
+def _ctx(ctx, parallel, mesh):
+    if mesh is None:
+        return ctx or Ctx()
+    if ctx is not None:
+        raise ValueError("under a mesh the step makes its own Ctx: pass parallel, not ctx")
+    # serving keeps no activations for a backward, so nothing is rematted
+    return Ctx(shard_fn=sharding.make_shard_fn(mesh, parallel or ParallelConfig()))
+
+
+def make_prefill_step(model: Model, cache_len: int, ctx: Ctx | None = None, *,
+                      parallel: ParallelConfig | None = None, mesh=None):
+    ctx = _ctx(ctx, parallel, mesh)
 
     def prefill_step(tokens, memory=None):
         return model.prefill(tokens, cache_len, ctx, memory)
 
-    return prefill_step
+    return under_mesh(prefill_step, model, mesh)
 
 
-def make_forward_step(model: Model, ctx: Ctx | None = None):
+def make_forward_step(model: Model, ctx: Ctx | None = None, *,
+                      parallel: ParallelConfig | None = None, mesh=None):
     """A full-sequence forward (the JAX package's prefill dry-run shape):
     ``model.apply`` over every position, then the last position's logits
     (B, V). Unlike ``prefill`` it unembeds every position and keeps no
     cache."""
-    ctx = ctx or Ctx()
+    ctx = _ctx(ctx, parallel, mesh)
 
     def forward(tokens, memory=None):
         return model.apply(tokens, ctx, memory)[:, -1]
 
-    return forward
+    return under_mesh(forward, model, mesh)
 
 
-def make_decode_step(model: Model, ctx: Ctx | None = None):
+def make_decode_step(model: Model, ctx: Ctx | None = None, *, mesh=None):
+    if mesh is not None:
+        raise NotImplementedError(sharding.DECODE_WAITS)
     ctx = ctx or Ctx()
 
     def decode_step(token, cache):

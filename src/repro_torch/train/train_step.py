@@ -9,15 +9,21 @@ tensors, and a step updates them and the moments in place (the JAX step is
 pure; in place saves a second copy of 46.6 GB of state at gemma3-4b's
 width). A failure before the optimizer update leaves the state as it was,
 so a step that raised there can be run again.
+
+Under a mesh (``mesh``, a ``DeviceMesh``) the eval step runs on a model
+made sharded by ``parallel.sharding.shard_model`` and takes the batch as
+DTensors (``shard_inputs``); the train step under a mesh is not ported yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.models.model import Ctx, Model
+from repro_torch.parallel import sharding
 from repro_torch.train.optimizer import (OptConfig, OptState, adamw_update,
                                          init_opt_state)
 
@@ -28,8 +34,26 @@ class TrainState(NamedTuple):
     err: dict              # error-feedback state for compressed DP ({}: none here)
 
 
-def make_ctx(parallel: ParallelConfig) -> Ctx:
-    return Ctx(remat=parallel.remat)
+def make_ctx(parallel: ParallelConfig, mesh=None) -> Ctx:
+    return Ctx(remat=parallel.remat, shard_fn=sharding.make_shard_fn(mesh, parallel))
+
+
+def under_mesh(fn, model: Model, mesh):
+    """``fn`` as it runs with a model sharded over ``mesh``: the arch
+    checked (``check_mesh_support``), and the call inside
+    ``implicit_replication``, where a plain tensor that meets a DTensor
+    counts as replicated. ``fn`` itself without a mesh."""
+    if mesh is None:
+        return fn
+    from torch.distributed.tensor.experimental import implicit_replication
+    sharding.check_mesh_support(model.cfg)
+
+    @functools.wraps(fn)
+    def step(*args, **kwargs):
+        with implicit_replication():
+            return fn(*args, **kwargs)
+
+    return step
 
 
 def init_train_state(model: Model) -> TrainState:
@@ -51,7 +75,10 @@ def _microbatches(batch, m):
             for i in range(m)]
 
 
-def make_train_step(model: Model, opt_cfg: OptConfig, parallel: ParallelConfig):
+def make_train_step(model: Model, opt_cfg: OptConfig, parallel: ParallelConfig,
+                    mesh=None):
+    if mesh is not None:
+        raise NotImplementedError(sharding.TRAIN_WAITS)
     ctx = make_ctx(parallel)
     ndims = model.stacked_ndims()          # the decay rule in the JAX layout
 
@@ -95,8 +122,8 @@ def make_train_step(model: Model, opt_cfg: OptConfig, parallel: ParallelConfig):
     return train_step
 
 
-def make_eval_step(model: Model, parallel: ParallelConfig):
-    ctx = make_ctx(parallel)
+def make_eval_step(model: Model, parallel: ParallelConfig, mesh=None):
+    ctx = make_ctx(parallel, mesh)
 
     @torch.no_grad()
     def eval_step(batch):
@@ -105,4 +132,4 @@ def make_eval_step(model: Model, parallel: ParallelConfig):
         loss, metrics = model.loss(batch, ctx)
         return {"loss": loss, **metrics}
 
-    return eval_step
+    return under_mesh(eval_step, model, mesh)
