@@ -188,7 +188,12 @@ a kernel's plain version:
              counted, and the forward step of gemma3-4b and qwen3-8b at full
              depth on the production mesh (16, 16) and of qwen3-8b on
              (2, 16, 16): one K1 node a layer, no allocation and no launch,
-             the FLOPs a rank and each collective's count and bytes printed
+             the FLOPs a rank and each collective's count and bytes printed;
+             and qwen3-8b's FSDP train step on (16, 16) at full width and
+             1, 2 and 4 layers (MESH_TRAIN_CAPTURE): the K1 forward and
+             backward nodes a layer that phase 8's sharded train step
+             launched a rank and a layer, its FLOPs a rank and every
+             collective's count and bytes exactly linear in depth
   8. mesh    the serving path sharded over a DeviceMesh under the default
              ParallelConfig's rules (tp, fsdp, sequence parallel), every
              rank simulated on the card by LocalTensorMode
@@ -205,7 +210,15 @@ a kernel's plain version:
              DECODE_RTOL and f32 within 1e-3 of the largest value, the
              whole logits the same on every rank (and on 8 ranks the bf16
              cache within one bf16 ulp, CACHE_RTOL, in f32); the seconds of
-             each run
+             each run. Then the train step under a mesh (MESH_TRAIN):
+             gemma3-4b at full width as one superblock (6 layers) in f32 on
+             (2, 4), B 4 x S 512, 3 steps of the default ParallelConfig
+             (remat dots), each against an unsharded train step from the
+             same params and moments: loss and gnorm within 1e-5, every
+             gathered gradient leaf within 1e-3 of the leaf's max, the
+             sharded update within 1e-6 of the port's unsharded
+             adamw_update of the gathered state, K1's forward and backward
+             launches 8 x the unsharded step's (96 and 48)
 Prints the kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -2621,6 +2634,240 @@ def phase_mesh(torch, card):
     return out
 
 
+# the train step under a mesh: (arch, layers, mesh, batch, seq, steps).
+# gemma3-4b at full width as one superblock (5 local + 1 global layers) in
+# f32 on (2, 4), every rank simulated (2 q heads and 1 kv head a rank), B 4 x
+# S 512: 1.24 B parameters, whose f32 params and moments (15 GB) are held
+# once sharded and once unsharded, with the gradients of both. MESH_TRAIN_RTOL:
+# the loss and gnorm against the unsharded step's, relative; each gradient
+# leaf gathered against the unsharded one, of that leaf's max (f32 summation
+# order, as the sharded prefill's f32 rule); the sharded update against the port's
+# unsharded adamw_update fed the gathered gradients and moments and the
+# sharded step's global norm, of each leaf's max (the same f32 math: the
+# norms' summation orders, a few ulps apart, would move it through the
+# clip), and that norm against the one of the gathered gradients, relative,
+# by the gnorm rule
+MESH_TRAIN = (ARCH, 6, (2, 4), 4, 512, 3)
+MESH_TRAIN_RTOL = {"loss": 1e-5, "gnorm": 1e-5, "grad": 1e-3, "update": 1e-6}
+
+
+def phase_mesh_train(torch, card):
+    """MESH_TRAIN: `steps` steps of the train step of the default
+    ParallelConfig (tp, fsdp, sequence parallel, remat dots) under a mesh,
+    every rank simulated on the card, each against an unsharded train step
+    on the card from the same state: both models are made from one seed
+    (their leaves' sums checked equal), and before each later step the
+    unsharded params and moments are set to the gathered sharded ones (a
+    whole step compared element by element after an update is ill-posed:
+    AdamW moves each element by about lr * sign(g), so a gradient near 0
+    moves it either way). For each step: loss and gnorm, every gradient leaf
+    gathered, and the sharded AdamW update (params and both moments) against
+    the port's unsharded adamw_update of the gathered params, gradients and
+    moments, given the sharded step's global norm, which is held against the
+    norm of the gathered gradients; K1's forward and backward launches (counts reset just before
+    each step and read just after) 8 x the unsharded step's, and no other
+    kernel. Returns {path: launches of the first sharded step, seconds,
+    checks}."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import Model
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.mesh import coordinate, make_mesh, rank_map, simulated_ranks
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import OptConfig, OptState
+    from torch.distributed.tensor import DTensor
+
+    arch, layers, shape, batch, seq, steps = MESH_TRAIN
+    cfg = mesh_config(get_config, arch, layers)
+    world, tol = math.prod(shape), MESH_TRAIN_RTOL
+    counters = _launch_counters()
+    opt, par = OptConfig(**TRAIN_OPT), ParallelConfig()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device="cuda")
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1
+    data = {"tokens": tokens, "labels": labels}
+    adamw = ts.adamw_update
+    memory = {}
+
+    def held(what):
+        """The bytes allocated on the card now, kept under `what`."""
+        memory[what] = torch.cuda.memory_allocated() / 1e9
+        log(f"[mesh] train {cfg.name}: {memory[what]:.2f} GB allocated {what}")
+
+    def run(step, state, inputs, loss_of):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, inputs)
+        torch.cuda.synchronize()
+        return state, {"loss": loss_of(met["loss"]), "gnorm": float(met["gnorm"]),
+                       "s": time.perf_counter() - t0,
+                       "launches": {name: fn.launches for name, fn in counters.items()}}
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()),
+                                                                1e-30)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    models = [Model(cfg, device="cuda", seed=SEED, trainable=True).float() for _ in range(2)]
+    sums = [[float(p.detach().sum(dtype=torch.float64)) for p in m.parameters()]
+            for m in models]
+    if sums[0] != sums[1]:
+        fail(f"train {cfg.name} mesh {shape}: two models of seed {SEED} have other weights")
+    n_params = sum(p.numel() for p in models[0].parameters())
+    state_u = ts.init_train_state(models[0])
+    step_u = ts.make_train_step(models[0], opt, par)
+    model = models[1]
+    del models
+    ref, got, checks, grads_u = [], [], [], {}
+
+    def keep_grads(cfg_, params, grads, state, ndims=None):
+        grads_u.clear()
+        grads_u.update((k, g.detach().to("cpu")) for k, g in grads.items())
+        return adamw(cfg_, params, grads, state, ndims)
+
+    with simulated_ranks(world) as mode:
+        mesh = make_mesh(shape, MESH_AXES[len(shape)])
+        sharding.shard_model(model, mesh, par)
+        inputs = sharding.shard_inputs(data, sharding.batch_specs(model, "train", batch, seq),
+                                       mesh, par)
+        state = ts.init_train_state(model)
+        step = ts.make_train_step(model, opt, par, mesh)
+        t_setup = time.perf_counter() - t0
+        held("with the unsharded and the sharded state")
+
+        def whole(t, out=None):
+            """t's whole value in one plain tensor (`out` if given; plain
+            tensors stay plain under mode.disable()): each
+            rank's shard copied into its place, and every rank's shard
+            checked equal to what its place then holds (the ranks that
+            replicate a dim hold the same values). full_tensor() would give
+            every rank a whole copy (8 x 2.7 GB for the embedding)."""
+            shards = t.to_local()._local_tensors
+            with mode.disable():
+                if out is None:
+                    out = torch.empty(t.shape, dtype=t.dtype, device="cuda")
+
+                def place(r):
+                    return sharding.shard_region(out, mesh, t.placements, coordinate(mesh, r))
+
+                for r, local in shards.items():
+                    place(r).copy_(local)
+                if not all(torch.equal(place(r), local) for r, local in shards.items()):
+                    fail(f"train {cfg.name} mesh {shape}: ranks that replicate a shard of "
+                         f"a {tuple(t.shape)} leaf disagree")
+                return out
+
+        def shards(t, like):
+            """A plain whole tensor cut as `like` is placed, rank by rank."""
+            return DTensor.from_local(
+                rank_map(lambda r: sharding.local_shard(t, mesh, like.placements,
+                                                        coordinate(mesh, r))),
+                mesh, like.placements, run_check=False, shape=like.shape, stride=like.stride())
+
+        @torch.no_grad()
+        def set_unsharded(params, st):
+            """The unsharded params and moments set to the gathered sharded
+            ones (the buffers of the update's check below, too)."""
+            for k, p in params.items():
+                whole(p, state_u.params[k].data)
+                whole(st.mu[k], state_u.opt.mu[k])
+                whole(st.nu[k], state_u.opt.nu[k])
+
+        @torch.no_grad()
+        def check_update(cfg_, params, grads, st, ndims=None):
+            errs = {"grad": 0.0, "update": 0.0, "placed": True}
+            if not checks:
+                held("after the first sharded backward")
+            g = {}
+            for k, p in params.items():
+                errs["placed"] &= all(t.placements == p.placements
+                                      for t in (grads[k], st.mu[k], st.nu[k]))
+                g[k] = whole(grads[k])
+                with mode.disable():
+                    errs["grad"] = max(errs["grad"], rel(g[k], grads_u[k].cuda()))
+            set_unsharded(params, st)
+            out = adamw(cfg_, params, grads, st, ndims)
+            norm = float(out[2]["gnorm"])
+            # the clip scales every gradient by 1 / gnorm, and the sharded
+            # and the unsharded norm sum the squares in other orders, some
+            # ulps apart. The reference takes the sharded step's norm, so
+            # that the update is compared alone, and the norms beside it
+            with mode.disable():
+                errs["norm"] = abs(norm / float(optim.global_norm(g)) - 1)
+                global_norm = optim.global_norm
+                optim.global_norm = lambda tree: torch.tensor(norm, dtype=torch.float32,
+                                                              device="cuda")
+                try:
+                    want_p, want_st, _ = adamw(cfg_, state_u.params, g,
+                                               OptState(st.step, state_u.opt.mu,
+                                                        state_u.opt.nu), ndims)
+                finally:
+                    optim.global_norm = global_norm
+            del g
+            for k, p in params.items():
+                for t, want in ((p, want_p[k]), (out[1].mu[k], want_st.mu[k]),
+                                (out[1].nu[k], want_st.nu[k])):
+                    d = float((t - shards(want, t)).abs().max().full_tensor())
+                    with mode.disable():
+                        top = float(want.abs().max())
+                    errs["update"] = max(errs["update"], d / max(top, 1e-30))
+            checks.append(errs)
+            return out
+
+        t0 = time.perf_counter()
+        for i in range(steps):
+            if i:
+                set_unsharded(state.params, state.opt)
+            ts.adamw_update = keep_grads
+            try:
+                with mode.disable():
+                    state_u, r = run(step_u, state_u, data, float)
+                ref.append(r)
+                ts.adamw_update = check_update
+                state, r = run(step, state, inputs, lambda x: float(x.full_tensor()))
+                got.append(r)
+            finally:
+                ts.adamw_update = adamw
+        del state, step, inputs
+    t_steps = time.perf_counter() - t0
+    del state_u, step_u, model
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    path = f"train {cfg.name} float32 mesh {shape}"
+    for i, (r, s, c) in enumerate(zip(ref, got, checks)):
+        want = {name: world * n for name, n in r["launches"].items()}
+        log(f"[mesh] {path}, step {i + 1}: loss {s['loss']:.7f} (unsharded {r['loss']:.7f}), "
+            f"gnorm {s['gnorm']:.7f} (unsharded {r['gnorm']:.7f}); max gradient leaf error "
+            f"{c['grad']:.2e} (rule {tol['grad']:g}); update against the unsharded "
+            f"adamw_update of the gathered state and the sharded norm {c['update']:.2e} (rule "
+            f"{tol['update']:g}); the norms {c['norm']:.2e} apart (rule {tol['gnorm']:g}); "
+            f"launches {s['launches']} (unsharded {r['launches']}); {s['s']:.2f} s (unsharded "
+            f"{r['s'] * 1e3:.1f} ms)")
+        if s["launches"] != want or not s["launches"]["flash_attention_bwd"]:
+            fail(f"{path} step {i + 1}: launches {s['launches']}, want {want}")
+        bad = [k for k in ("loss", "gnorm")
+               if not math.isfinite(s[k]) or abs(s[k] - r[k]) > tol[k] * abs(r[k])]
+        bad += [k for k, rule in (("grad", "grad"), ("update", "update"), ("norm", "gnorm"))
+                if not c[k] <= tol[rule]]
+        if bad or not c["placed"]:
+            fail(f"{path} step {i + 1}: {bad} off (placed {c['placed']}): {s}, unsharded {r}, "
+                 f"{c}")
+    log(f"[mesh] {path}: {world} ranks, {n_params / 1e9:.3f}B params, B {batch} x S {seq}, "
+        f"{steps} steps: setup {t_setup:.1f} s (two models, sharding), steps and checks "
+        f"{t_steps:.1f} s; peak {peak:.1f} GB; {card}")
+    torch.cuda.empty_cache()
+    return {path: {"launches": got[0]["launches"], "step_s": [s["s"] for s in got],
+                   "unsharded_ms": [r["s"] * 1e3 for r in ref], "ranks": world,
+                   "layers": cfg.num_layers, "config": cfg.name, "mesh": list(shape),
+                   "loss": [s["loss"] for s in got], "gnorm": [s["gnorm"] for s in got],
+                   "checks": checks, "memory_gb": memory, "peak_gb": peak}}
+
+
 # ---------------------------------------------------------------------------
 # capture (phase 7)
 # ---------------------------------------------------------------------------
@@ -2648,6 +2895,11 @@ CAPTURE_DEEP = ((DBRX, "train", (1, 2, 40)), (LLAMA, "prefill", (5, 10, 100)))
 # one sequence a (pod, data) rank
 MESH_CAPTURES = ((ARCH, "prefill", (2, 4), BATCH), (ARCH, "forward", (16, 16), 16),
                  (QWEN, "forward", (16, 16), 16), (QWEN, "forward", (2, 16, 16), 32))
+# rank 0's program of the FSDP train step on the production mesh (16, 16),
+# qwen3-8b at full width, one sequence of TRAIN_SEQ a data rank, at these
+# depths: its FLOPs and every collective's count and bytes held exactly
+# linear in depth (the first two fix the line, the third is on it)
+MESH_TRAIN_CAPTURE = (QWEN, (16, 16), 16, (1, 2, 4))
 
 
 def count_flops_of(torch, fn):
@@ -2724,18 +2976,22 @@ def capture_one(torch, cfg, what):
 
 def capture_mesh(torch, cfg, what):
     """(capture, parameters) of rank 0's program of a step under a mesh:
-    `what` is "<prefill or forward>@<mesh, as 2x16x16>:B<batch>"; a fake process
-    group of the mesh's ranks, the production mesh where the shape is one;
-    the model sharded under the default ParallelConfig's rules, the batch
+    `what` is "<prefill, forward or train>@<mesh, as 2x16x16>:B<batch>"; a fake
+    process group of the mesh's ranks, the production mesh where the shape is
+    one; the model sharded under the default ParallelConfig's rules, the batch
     split as batch_specs say, and the trace taken over rank 0's shards
-    (core.capture_sharded_step)."""
+    (core.capture_sharded_step). A train step (FSDP over the data axis,
+    remat dots) takes TRAIN_SEQ tokens a sequence, TRAIN_OPT and its moments
+    sharded as the params; the others PROMPT tokens."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.core import capture_sharded_step, fake_mode
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import Model
     from repro_torch.parallel import sharding
     from repro_torch.parallel.mesh import fake_process_group, make_mesh
+    from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.serve_step import make_forward_step, make_prefill_step
+    from repro_torch.train.train_step import init_train_state, make_train_step
 
     step, rest = what.split("@")
     shape, batch = rest.split(":B")
@@ -2747,15 +3003,24 @@ def capture_mesh(torch, cfg, what):
         else:
             mesh = make_mesh(shape, MESH_AXES[len(shape)])
         with fake_mode():
-            model = Model(cfg, abstract=True)
+            model = Model(cfg, trainable=step == "train", abstract=True)
             sharding.shard_model(model, mesh, par)
-            tokens = torch.empty(batch, PROMPT, dtype=torch.long, device="cuda")
-            inputs = sharding.shard_inputs(
-                {"tokens": tokens}, sharding.batch_specs(model, "prefill", batch, PROMPT),
-                mesh, par)
-            fn = (make_prefill_step(model, PROMPT, parallel=par, mesh=mesh) if step == "prefill"
-                  else make_forward_step(model, parallel=par, mesh=mesh))
-            cap = capture_sharded_step(fn, model, [inputs["tokens"]], {"config": cfg.name})
+            if step == "train":
+                tokens = torch.empty(batch, TRAIN_SEQ, dtype=torch.long, device="cuda")
+                inputs = sharding.shard_inputs(
+                    {"tokens": tokens, "labels": tokens},
+                    sharding.batch_specs(model, "train", batch, TRAIN_SEQ), mesh, par)
+                fn = make_train_step(model, OptConfig(**TRAIN_OPT), par, mesh)
+                args = [init_train_state(model), inputs]
+            else:
+                tokens = torch.empty(batch, PROMPT, dtype=torch.long, device="cuda")
+                inputs = sharding.shard_inputs(
+                    {"tokens": tokens}, sharding.batch_specs(model, "prefill", batch, PROMPT),
+                    mesh, par)
+                fn = (make_prefill_step(model, PROMPT, parallel=par, mesh=mesh)
+                      if step == "prefill" else make_forward_step(model, parallel=par, mesh=mesh))
+                args = [inputs["tokens"]]
+            cap = capture_sharded_step(fn, model, args, {"config": cfg.name})
             n_params = sum(p.numel() for p in model.parameters())
     return cap, n_params
 
@@ -2799,6 +3064,9 @@ def capture_jobs(get_config):
                  for L in depths]
     jobs += [(get_config(arch), mesh_what(step, mesh, batch))
              for arch, step, mesh, batch in MESH_CAPTURES]
+    arch, mesh, batch, depths = MESH_TRAIN_CAPTURE
+    jobs += [(mesh_config(get_config, arch, L), mesh_what("train", mesh, batch))
+             for L in depths]
     return jobs
 
 
@@ -2824,7 +3092,48 @@ def roofline_ms(flops, nbytes):
     return max(t_ops, t_bytes), t_ops, t_bytes
 
 
-def phase_capture(torch, card, proc, measured, real_flops, mesh_measured):
+def check_train_capture(by_key, mesh_train):
+    """Gate (v) of phase_capture: rank 0's program of the FSDP train step
+    (MESH_TRAIN_CAPTURE) has, a layer, the K1 forward and backward nodes
+    that phase 8's sharded train step launched a rank and a layer, and its
+    FLOPs and every collective's count and bytes are exactly linear in
+    depth. `by_key`: the captures by (config, what)."""
+    arch, shape, batch, depths = MESH_TRAIN_CAPTURE
+    run = next(iter(mesh_train.values()))
+    per_layer = {}
+    for name, n in run["launches"].items():
+        per_layer[name], rest = divmod(n, run["ranks"] * run["layers"])
+        if rest:
+            fail(f"{name}: phase 8's sharded train step launched {n}, not a whole number "
+                 f"a rank and a layer")
+    caps_t = [by_key[(f"{arch}-{L}layer", mesh_what("train", shape, batch))] for L in depths]
+    for c, L in zip(caps_t, depths):
+        comm = {k: f"{v['count']} ({v['bytes'] / 1e6:.3f} MB)" for k, v in sorted(c["comm"].items())}
+        log(f"[capture] rank 0 of {arch} train at {L} layers on mesh {shape} ({c['world']} ranks, "
+            f"B {batch} x S {TRAIN_SEQ}, FSDP, remat dots): {c['parsed_flops']:.6e} FLOPs a rank, "
+            f"COMM_COLL {comm}, {c['comm_bytes'] / 1e6:.3f} MB in all; kernel nodes "
+            f"{c['kernel_nodes']}; {c['seconds']:.1f} s")
+        want = {name: L * n for name, n in per_layer.items()}
+        if c["world"] != math.prod(shape) or c["kernel_launch_nodes"] != want:
+            fail(f"capture {arch} train at {L} layers mesh {shape}: world {c['world']}, kernel "
+                 f"nodes {c['kernel_launch_nodes']}, want {want} (phase 8's launches a rank "
+                 f"and a layer)")
+    (d1, c1), (d2, c2), (dn, cn) = zip(depths, caps_t)
+    k = (dn - d1) // (d2 - d1)
+    lines = {"FLOPs": [c["parsed_flops"] for c in (c1, c2, cn)]}
+    for kind in sorted(set(c1["comm"]) | set(c2["comm"]) | set(cn["comm"])):
+        for what in ("count", "bytes"):
+            lines[f"{kind} {what}"] = [c["comm"].get(kind, {}).get(what, 0) for c in (c1, c2, cn)]
+    off = {name: v for name, v in lines.items() if v[2] != v[0] + k * (v[1] - v[0])}
+    if off:
+        fail(f"capture {arch} train on mesh {shape}: not linear in depth {depths}: {off}")
+    log(f"[capture] rank 0 of {arch} train on mesh {shape}: FLOPs and every collective's count "
+        f"and bytes at {dn} layers = x({d1}) + {k} x (x({d2}) - x({d1})), exactly "
+        f"({len(lines)} lines); K1 nodes a layer {per_layer} = phase 8's launches a rank and "
+        f"a layer")
+
+
+def phase_capture(torch, card, proc, measured, real_flops, mesh_measured, mesh_train):
     """Read the capture process (start_captures) and hold its captures:
     (i) none changed CUDA's allocated or reserved bytes or made an
     allocation, and none moved a launch counter;
@@ -2837,8 +3146,12 @@ def phase_capture(torch, card, proc, measured, real_flops, mesh_measured):
     (iv) rank 0's program under a mesh has one K1 node a layer, and on the
     mesh phase's measured gemma3-4b path, its K1 nodes times the ranks equal
     the launches the simulated run counted (`mesh_measured`, phase_mesh's);
-    its FLOPs, collectives and their bytes are printed. Returns the
-    captures."""
+    its FLOPs, collectives and their bytes are printed; (v) rank 0's program
+    of qwen3-8b's FSDP train step on (16, 16) (MESH_TRAIN_CAPTURE) has, a
+    layer, the K1 forward and backward nodes that phase 8's sharded train
+    step launched a rank and a layer (`mesh_train`, phase_mesh_train's), and
+    its FLOPs and each collective's count and bytes are exactly linear in
+    depth. Returns the captures."""
     if proc.wait(timeout=900) != 0:
         with open(CAPTURE_OUT + ".log") as f:
             fail(f"capture process exited {proc.returncode}:\n{f.read()[-4000:]}")
@@ -2914,6 +3227,7 @@ def phase_capture(torch, card, proc, measured, real_flops, mesh_measured):
                      f"x {c['world']} ranks, the simulated run launched {want}")
             log(f"[capture] rank 0 of {arch} {step} on mesh {shape}: K1 nodes x ranks = "
                 f"the simulated run's launches ({want})")
+    check_train_capture(by_key, mesh_train)
     return caps
 
 
@@ -3014,8 +3328,10 @@ def main(argv=None):
                   for arch in CROSS_ARCHS}
     cross_train = {arch: timed(f"train {arch}", phase_train, torch, card, arch)
                    for arch in CROSS_ARCHS}
-    # the serving path under a mesh: every rank simulated on the card
+    # the serving path and the train step under a mesh: every rank simulated
+    # on the card
     mesh_runs = timed("mesh", phase_mesh, torch, card)
+    mesh_train = timed("mesh train", phase_mesh_train, torch, card)
     # the capture of every measured path against its run
     measured = {(serve_config(get_config, a).name, "prefill"): (n["launches"], n["prefill_ms"])
                 for a, n in by_arch.items()}
@@ -3023,17 +3339,20 @@ def main(argv=None):
         measured[(t["config"], "train")] = (t["launches_per_step"], t["step_ms"])
     real_flops = {(serve_config(get_config, ARCH).name, "prefill"): by_arch[ARCH]["flops"],
                   (train["config"], "train"): train["flops"]}
-    timed("capture", phase_capture, torch, card, captures, measured, real_flops, mesh_runs)
+    timed("capture", phase_capture, torch, card, captures, measured, real_flops, mesh_runs,
+          mesh_train)
     flash["launches_by_path"] = {f"serve {a}": n["launches"]["flash_attention"]
                                  for a, n in by_arch.items() if n["launches"]["flash_attention"]}
     trained_on_k1 = {ARCH: train, RG_ARCH: rg_train, **dense_train, **moe_train, **cross_train}
     for a, t in trained_on_k1.items():
         flash["launches_by_path"][f"train {a}"] = t["launches"]["flash_attention"]
-    for path, r in mesh_runs.items():
+    for path, r in {**mesh_runs, **mesh_train}.items():
         flash["launches_by_path"][path] = r["launches"]["flash_attention"]
     flash["launches"] = sum(flash["launches_by_path"].values())
     flash_bwd["launches_by_path"] = {f"train {a}": t["launches"]["flash_attention_bwd"]
                                      for a, t in trained_on_k1.items()}
+    for path, r in mesh_train.items():
+        flash_bwd["launches_by_path"][path] = r["launches"]["flash_attention_bwd"]
     flash_bwd["launches"] = sum(flash_bwd["launches_by_path"].values())
     flash_bwd["grad_check"] = grad
     flash_bwd[f"grad_check {QWEN}"] = qwen_grad

@@ -161,12 +161,13 @@ class ParallelConfig:
     """Software-system knobs (sharding strategy etc.): the JAX package's
     fields and defaults. On one device the trainer reads ``remat``,
     ``microbatches`` and ``grad_compression``. Under a mesh
-    (``parallel/sharding.py``) the serving and eval steps read the sharding
-    knobs fsdp, model_axis, seq_shard and seq_shard_cache through the rules;
-    moe_strategy and scan_layers change nothing in the port. Values that need
-    what the port has not yet raise: int8 gradient compression, pipeline
-    stages, and any attention implementation but the default (the port has
-    one per device: K1 on CUDA, its plain version on the CPU)."""
+    (``parallel/sharding.py``) the serving, eval and train steps read the
+    sharding knobs fsdp, model_axis, seq_shard and seq_shard_cache through
+    the rules; moe_strategy and scan_layers change nothing in the port.
+    Values that need what the port has not yet raise: int8 gradient
+    compression, pipeline stages, and any attention implementation but the
+    default (the port has one per device: K1 on CUDA, its plain version on
+    the CPU)."""
     fsdp: bool = True                # shard big params over the data axis too
     model_axis: str = "tp"           # tp | zero3 (what the model axis does)
     seq_shard: bool = True           # sequence-parallel activation constraints

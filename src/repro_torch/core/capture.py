@@ -28,11 +28,14 @@ A step under a mesh is captured as one rank's program
 (``parallel.mesh.fake_process_group``) the trace takes the rank's local
 shards of the parameters and inputs and wraps them as DTensors inside the
 step, so its nodes are the rank's products at local shapes and the
-collectives between ranks. ``capture_step`` refuses DTensor arguments: a
-trace over them is the global program, whose FLOPs are those of all ranks.
+collectives between ranks; a train step's graph also holds the rank's
+backward and its AdamW on its shards. ``capture_step`` refuses DTensor
+arguments: a trace over them is the global program, whose FLOPs are those
+of all ranks.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import Counter
@@ -45,6 +48,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor
 from torch.fx.experimental import proxy_tensor
 from torch.fx.experimental.proxy_tensor import make_fx
+from torch.utils import checkpoint as torch_checkpoint
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch.core import chakra
@@ -119,11 +123,21 @@ def capture_step(step_fn, example_args, meta: Optional[Dict] = None) -> CaptureR
                          "arguments counts the FLOPs of every rank; capture a sharded "
                          "step with capture_sharded_step")
     t0 = time.perf_counter()
-    # make_fx computes an op on one-element constants for real, on their
-    # device (a bias correction moved to the card: an allocation there and a
-    # kernel for each op on it, ~1,000 a training step on an H100); with no
-    # such constants the fake mode's own, kept on the host, serve float()
-    with mock.patch.object(proxy_tensor, "CONSTANT_NUMEL_LIMIT", 0):
+    with contextlib.ExitStack() as stack:
+        # make_fx computes an op on one-element constants for real, on their
+        # device (a bias correction moved to the card: an allocation there
+        # and a kernel for each op on it, ~1,000 a training step on an H100);
+        # with no such constants the fake mode's own, kept on the host, serve
+        # float()
+        stack.enter_context(mock.patch.object(proxy_tensor, "CONSTANT_NUMEL_LIMIT", 0))
+        # selective checkpointing (remat dots) takes make_fx's proxy mode for
+        # a compiler's: it keeps every output and leaves the recompute to the
+        # compiler's partitioner, so the trace would hold none. Told that no
+        # compiler traces, it runs as eagerly on the card: the backward
+        # recomputes what the policy does not save (K1's forward among them)
+        if hasattr(torch_checkpoint, "_is_compiling"):
+            stack.enter_context(mock.patch.object(torch_checkpoint, "_is_compiling",
+                                                  lambda *a, **k: False))
         gm = make_fx(step_fn, tracing_mode="fake")(*example_args)
     t_trace = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -143,12 +157,17 @@ def capture_sharded_step(step_fn, model, inputs, meta: Optional[Dict] = None) ->
     with ``inputs`` DTensors (``shard_inputs``), all made in ``fake_mode()``
     under a fake process group. The trace takes the rank's local shards of
     the parameters and inputs and wraps them back into DTensors inside the
-    step; what the step returns is taken local. The meta records the
-    world size."""
+    step, each parameter keeping its ``requires_grad``; what the step
+    returns is taken local. A train step's ``TrainState`` is an input like
+    any other: its params, the model's own, are traced as the model's
+    wrapped parameters, and its moments as the rank's shards, so the graph
+    holds the rank's forward, backward and AdamW with the gradients'
+    collectives. The meta records the world size."""
     params = [(mod, key, p) for mod in model.modules()
               for key, p in mod._parameters.items() if isinstance(p, DTensor)]
     if not params:
         raise ValueError("the model has no DTensor parameters: shard it first")
+    index = {id(p): i for i, (_, _, p) in enumerate(params)}
 
     def wrap(local, like):
         return DTensor.from_local(local, like.device_mesh, like.placements,
@@ -157,11 +176,14 @@ def capture_sharded_step(step_fn, model, inputs, meta: Optional[Dict] = None) ->
     leaves, spec = tree_flatten(tuple(inputs))
 
     def rank_step(param_locals, input_locals):
-        for (mod, key, p), local in zip(params, param_locals):
-            mod._parameters[key] = nn.Parameter(wrap(local, p), requires_grad=False)
+        wrapped = [nn.Parameter(wrap(local, p), requires_grad=p.requires_grad)
+                   for (_, _, p), local in zip(params, param_locals)]
+        for (mod, key, _), w in zip(params, wrapped):
+            mod._parameters[key] = w
         try:
             out = step_fn(*tree_unflatten(
-                [wrap(x, like) if isinstance(like, DTensor) else x
+                [wrapped[index[id(like)]] if id(like) in index
+                 else wrap(x, like) if isinstance(like, DTensor) else x
                  for x, like in zip(input_locals, leaves)], spec))
         finally:
             for mod, key, p in params:
@@ -170,6 +192,8 @@ def capture_sharded_step(step_fn, model, inputs, meta: Optional[Dict] = None) ->
 
     meta = dict(meta or {})
     meta["world_size"] = dist.get_world_size()
-    return capture_step(rank_step, ([p.to_local() for _, _, p in params],
-                                    [x.to_local() if isinstance(x, DTensor) else x
+    # a parameter among the inputs is traced once, as the model's
+    return capture_step(rank_step, ([p.to_local().detach() for _, _, p in params],
+                                    [None if id(x) in index
+                                     else x.to_local().detach() if isinstance(x, DTensor) else x
                                      for x in leaves]), meta)

@@ -156,7 +156,14 @@ def _local_attention(attend, q, k, v, kv_heads):
     does not, k and v are whole on every rank (the GQA trap: qwen3-8b's KV 8
     on a 16-wide model axis), so each kv head is repeated G/Gl times, Gl =
     gcd(G, Hl), before taking the rank's shard: then the rank's Hl/Gl kv
-    heads serve its q heads in groups of Gl, each its own."""
+    heads serve its q heads in groups of Gl, each its own.
+
+    In the backward each rank's gradients of its local q, k and v are whole
+    for its shards, so they keep q's placements (passed as
+    ``grad_placements``, not left to a default). For k and v repeated in
+    the GQA trap, those are shards of the repeated heads: the backward of
+    the redistribute gathers them, and that of the repeat sums each kv
+    head's G/Gl copies, the gradients of every rank that used it."""
     mesh, pl = q.device_mesh, q.placements
     H = q.shape[2]
     m = math.prod(mesh.size(i) for i, p in enumerate(pl) if p == Shard(2))
@@ -166,8 +173,8 @@ def _local_attention(attend, q, k, v, kv_heads):
         b, s, kvh, hd = k.shape
         k, v = (t[:, :, :, None].expand(b, s, kvh, g // gl, hd).reshape(b, s, H // gl, hd)
                 for t in (k, v))
-    k, v = k.redistribute(mesh, pl).to_local(), v.redistribute(mesh, pl).to_local()
-    ql = q.to_local()
+    k, v = (t.redistribute(mesh, pl).to_local(grad_placements=pl) for t in (k, v))
+    ql = q.to_local(grad_placements=pl)
     b, s, _, hd = ql.shape
     o = attend(ql.reshape(b, s, hl // gl, gl, hd), k, v)
     return DTensor.from_local(o.reshape(b, s, hl, hd), mesh, pl, run_check=False)

@@ -126,8 +126,22 @@ def local_product(eq, x, w, ctx, x_axes, w_axes):
             raise ValueError(f"{eq}: one operand alone is sharded over contracted dim "
                              f"{dims}: {x.placements} x {w.placements}")
     dt = torch.promote_types(x.dtype, w.dtype)
-    y = torch.einsum(eq, x.to_local().to(dt), w.to_local().to(dt))
+    y = torch.einsum(eq, x.to_local(grad_placements=grad_placements(x, w)).to(dt),
+                     w.to_local(grad_placements=grad_placements(w, x)).to(dt))
     return DTensor.from_local(y, mesh, pl, run_check=False)
+
+
+def grad_placements(a, b) -> tuple:
+    """Where the gradient of a's local shard in a product of the local
+    shards of ``a`` and ``b`` lies: as ``a`` is placed, except over a mesh
+    dim where ``a`` is whole and ``b`` split (x whole over the model axis
+    against w split by heads, ff or vocab; a weight gathered over the data
+    axis against x split by batch). There each rank's product covers only
+    its slice of ``b``, so its gradient of ``a`` is a partial sum over the
+    ranks: Partial(), which the backward of the redistribute that made
+    ``a`` reduces (or reduce-scatters into a sharded param)."""
+    return tuple(Partial() if p.is_replicate() and q.is_shard() else p
+                 for p, q in zip(a.placements, b.placements))
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -193,15 +207,43 @@ def embed_specs(vocab, d_model):
     return {"table": ParamSpec((vocab, d_model), ("vocab", "embed"))}
 
 
+def local_embedding(tokens, table, ctx):
+    """The rows of ``table`` at ``tokens``, DTensors under a mesh, as GSPMD
+    runs the reference's lookup under the rules: the table gathered over
+    its embed dim (FSDP), each rank's tokens looked up in its rows of the
+    vocab-sharded table, the other rows masked to zero, the output Partial
+    over the mesh dims that split the vocab (its sum over the shards is
+    exact). Tokens are whole over those dims. In the backward each rank's
+    gradient covers its rows only; left to DTensor, the lookup's backward
+    builds each rank's gradient of the whole table (V x D)."""
+    table = ctx.shard(table, "vocab", None)
+    tokens = ctx.shard(tokens, "batch", None)
+    mesh = table.device_mesh
+    vocab_split = [p.is_shard() for p in table.placements]
+    tokens = tokens.redistribute(mesh, [Replicate() if v else p for v, p in
+                                        zip(vocab_split, tokens.placements)])
+    rows = table.to_local(grad_placements=grad_placements(table, tokens))
+    idx = tokens.to_local() - first_index(table, 0)
+    keep = (idx >= 0) & (idx < rows.shape[0])
+    h = F.embedding(idx.clamp(0, rows.shape[0] - 1), rows) * keep[..., None].to(rows.dtype)
+    return DTensor.from_local(h, mesh, [Partial() if v else p for v, p in
+                                        zip(vocab_split, tokens.placements)], run_check=False)
+
+
+def first_index(t, dim):
+    """The index along ``dim`` of the whole DTensor ``t`` at which this
+    rank's shard starts: a 0-d tensor (one value a rank under simulated
+    ranks), cut from an arange placed as ``t`` places ``dim``."""
+    mesh = t.device_mesh
+    index = DTensor.from_local(torch.arange(t.shape[dim], device=t.device), mesh,
+                               [Replicate()] * mesh.ndim, run_check=False)
+    return index.redistribute(mesh, [Shard(0) if p == Shard(dim) else Replicate()
+                                     for p in t.placements]).to_local()[0]
+
+
 def embed_apply(p, tokens, d_model, ctx=None):
     table = p["table"]
-    if isinstance(table, DTensor):
-        # each rank looks its tokens up in its rows of the vocab-sharded
-        # table (the table gathered over its embed dim), the other rows
-        # masked to zero; the sum over the vocab's shards is exact
-        h = F.embedding(ctx.shard(tokens, "batch", None), ctx.shard(table, "vocab", None))
-    else:
-        h = table[tokens]
+    h = local_embedding(tokens, table, ctx) if isinstance(table, DTensor) else table[tokens]
     return (h.float() * math.sqrt(d_model)).to(table.dtype)
 
 

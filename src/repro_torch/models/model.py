@@ -37,6 +37,7 @@ from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -46,7 +47,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, rglru, ssm
 from repro_torch.models.layers import (ParamSpec, ParamTree, embed_apply,
-                                       embed_specs, mlp_apply, mlp_specs,
+                                       embed_specs, first_index, mlp_apply, mlp_specs,
                                        rms_norm, rms_norm_specs, unembed_apply)
 
 class _Mixer(NamedTuple):
@@ -348,8 +349,11 @@ class Model(nn.Module):
                                  return_aux=True)
         logits = logits.float()
         labels = batch["labels"]
-        lse = torch.logsumexp(logits, dim=-1)                         # (B,S)
-        sel = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+        if isinstance(logits, DTensor):
+            lse, sel = sharded_lse_and_label_logit(logits, labels)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)                     # (B,S)
+            sel = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
         nll = lse - sel
         mask = (labels >= 0).float()
         ntok = mask.sum().clamp_min(1.0)
@@ -413,6 +417,36 @@ class Model(nn.Module):
         if self.cfg.is_encdec:
             return self.cfg.encoder_len
         return 0
+
+
+def sharded_lse_and_label_logit(logits, labels):
+    """The logsumexp over the vocab of f32 logits (B, S, V), a DTensor
+    whose vocab may be split over mesh dims, and the logit of each label
+    (-1 for padding reads row 0), both (B, S) DTensors placed as the logits'
+    rows, as GSPMD computes them: each rank's max, sum of exp and label
+    logit over its rows of the vocab (0 where it does not hold the label),
+    reduced over the vocab's shards. Left to DTensor, the label's lookup
+    gathers the whole logits on every rank, and its backward builds their
+    whole gradient there."""
+    mesh = logits.device_mesh
+    split = [p == Shard(2) for p in logits.placements]
+    rows = [Replicate() if v else p for v, p in zip(split, logits.placements)]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    labels = labels.redistribute(mesh, rows).to_local()
+    x = logits.to_local(grad_placements=logits.placements)
+
+    def reduced(local, op):
+        return DTensor.from_local(local, mesh, [Partial(op) if v else p for v, p in
+                                                zip(split, rows)],
+                                  run_check=False).redistribute(mesh, rows)
+
+    m = reduced(x.detach().amax(dim=-1), "max")
+    lse = torch.log(reduced(torch.exp(x - m.to_local()[..., None]).sum(dim=-1), "sum")) + m
+    idx = labels.clamp_min(0).long() - first_index(logits, 2)
+    keep = (idx >= 0) & (idx < x.shape[-1])
+    sel = x.gather(-1, idx.clamp(0, x.shape[-1] - 1)[..., None])[..., 0] * keep.to(x.dtype)
+    return lse, reduced(sel, "sum")
 
 
 def _abstract_device(device) -> torch.device:

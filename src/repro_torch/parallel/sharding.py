@@ -154,16 +154,26 @@ def resolve_placements(axes, shape, rules, mesh) -> tuple:
     return placements(resolve_spec(axes, shape, rules, mesh), len(shape), mesh)
 
 
-def local_shard(full, mesh, pl, coord):
-    """The shard of ``full`` that the rank at ``coord`` holds under
-    placements ``pl``: cut along each sharded mesh dim in mesh order, major
-    to minor (even shards; the rules only shard a dim its axes divide)."""
+def shard_region(full, mesh, pl, coord):
+    """A view of the region of ``full`` that the rank at ``coord`` holds
+    under placements ``pl``: cut along each sharded mesh dim in mesh order,
+    major to minor (even shards; the rules only shard a dim its axes
+    divide)."""
     out = full
     for i, p in enumerate(pl):
         if p.is_shard():
             size = out.shape[p.dim] // mesh.size(i)
             out = out.narrow(p.dim, coord[i] * size, size)
-    return out.contiguous()
+    return out
+
+
+def local_shard(full, mesh, pl, coord):
+    """The shard of ``full`` that the rank at ``coord`` holds under
+    placements ``pl`` (``shard_region``). A copy, never a view: under
+    ``simulated_ranks`` the ranks that replicate a dim would otherwise share
+    one storage, and an in-place update (AdamW) would run on it once a
+    rank."""
+    return shard_region(full, mesh, pl, coord).clone(memory_format=torch.contiguous_format)
 
 
 def distribute(full, mesh, pl) -> DTensor:
@@ -186,8 +196,6 @@ def distribute(full, mesh, pl) -> DTensor:
 # the layers that cannot run under a mesh yet
 _LAYERS_WAITING = {SSD: "SSD", RGLRU: "RG-LRU", CROSS_ATTN: "cross-attention",
                    ENC_ATTN: "encoder"}
-TRAIN_WAITS = ("the train step under a mesh (ROADMAP queue 1, item 5.3: FSDP/ZeRO-3 "
-               "gradients, AdamW over DTensors)")
 DECODE_WAITS = ("decode under a mesh (ROADMAP queue 1, item 5.3: the cache rules and "
                 "decode's call sites)")
 
@@ -271,11 +279,12 @@ def batch_specs(model, kind: str, batch: int, seq_len: int) -> dict:
 def shard_inputs(inputs: dict, specs: dict, mesh, parallel: ParallelConfig) -> dict:
     """Whole inputs (the same on every rank) -> DTensors of each rank's
     shard, placed as their ``batch_specs`` resolve under
-    ``activation_rules``, as the JAX step's in_shardings place them."""
+    ``activation_rules``, as the JAX step's in_shardings place them. A
+    DTensor input is redistributed to those placements."""
     rules = activation_rules(parallel)
     out = {}
     for k, x in inputs.items():
         s = specs[k]
         pl = resolve_placements(s.logical_axes, tuple(x.shape), rules, mesh)
-        out[k] = distribute(x, mesh, pl)
+        out[k] = x.redistribute(mesh, pl) if isinstance(x, DTensor) else distribute(x, mesh, pl)
     return out

@@ -10,9 +10,13 @@ pure; in place saves a second copy of 46.6 GB of state at gemma3-4b's
 width). A failure before the optimizer update leaves the state as it was,
 so a step that raised there can be run again.
 
-Under a mesh (``mesh``, a ``DeviceMesh``) the eval step runs on a model
-made sharded by ``parallel.sharding.shard_model`` and takes the batch as
-DTensors (``shard_inputs``); the train step under a mesh is not ported yet.
+Under a mesh (``mesh``, a ``DeviceMesh``) the train and eval steps run on
+a model made sharded by ``parallel.sharding.shard_model`` and take the batch
+as DTensors (``shard_inputs``). The train step's gradients come back placed
+as their params (FSDP/ZeRO-3: a weight gathered for its products has its
+gradient reduce-scattered into its shards), and AdamW updates each rank's
+shards of the params and of the moments, which ``init_train_state`` places
+as the params.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import functools
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.models.model import Ctx, Model
@@ -35,6 +40,9 @@ class TrainState(NamedTuple):
 
 
 def make_ctx(parallel: ParallelConfig, mesh=None) -> Ctx:
+    # the JAX package also sets moe_groups here, the data-parallel degree
+    # (times the model axis under zero3); MoE under a mesh waits (ROADMAP
+    # queue 1, item 5.3), and without one MoE routes a call's tokens as one group
     return Ctx(remat=parallel.remat, shard_fn=sharding.make_shard_fn(mesh, parallel))
 
 
@@ -58,7 +66,8 @@ def under_mesh(fn, model: Model, mesh):
 
 def init_train_state(model: Model) -> TrainState:
     """The state of a model made with ``trainable=True`` (its seeded init
-    stands for the JAX package's ``model.init(rng)``)."""
+    stands for the JAX package's ``model.init(rng)``); of a sharded model,
+    its moments are DTensors placed as the params."""
     params = dict(model.named_parameters())
     frozen = [k for k, p in params.items() if not p.requires_grad]
     if frozen:
@@ -67,19 +76,33 @@ def init_train_state(model: Model) -> TrainState:
     return TrainState(params=params, opt=init_opt_state(params), err={})
 
 
-def _microbatches(batch, m):
+def _microbatches(batch, m, model=None, mesh=None, parallel=None):
+    """Microbatch i: rows [i b/m, (i+1) b/m) of the batch, as the JAX step's
+    reshape to (m, b/m, ...) takes them. Under a mesh each is placed as
+    ``shard_inputs`` places a batch of b/m (the slice of a batch split over
+    its rows gathers them: tokens and labels, a few KB)."""
     b = batch["tokens"].shape[0]
     if b % m:
         raise ValueError(f"batch {b} not divisible by microbatches {m}")
-    return [{k: v[i * (b // m):(i + 1) * (b // m)] for k, v in batch.items()}
-            for i in range(m)]
+    n = b // m
+    mbs = [{k: v[i * n:(i + 1) * n] for k, v in batch.items()} for i in range(m)]
+    if mesh is None:
+        return mbs
+    specs = sharding.batch_specs(model, "train", n, batch["tokens"].shape[1])
+    return [sharding.shard_inputs(mb, specs, mesh, parallel) for mb in mbs]
+
+
+def _placed_as(g, p):
+    """A DTensor param's grad redistributed to the param's placements (it
+    may come back Partial, as a product's gradient of a gathered weight)."""
+    if isinstance(p, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(model: Model, opt_cfg: OptConfig, parallel: ParallelConfig,
                     mesh=None):
-    if mesh is not None:
-        raise NotImplementedError(sharding.TRAIN_WAITS)
-    ctx = make_ctx(parallel)
+    ctx = make_ctx(parallel, mesh)
     ndims = model.stacked_ndims()          # the decay rule in the JAX layout
 
     def grads_of(params, batch):
@@ -89,7 +112,8 @@ def make_train_step(model: Model, opt_cfg: OptConfig, parallel: ParallelConfig,
         loss.backward()
         grads = {}
         for k, p in params.items():
-            grads[k] = p.grad if p.grad is not None else torch.zeros_like(p)
+            # zeros_like of a DTensor param is a DTensor placed as it
+            grads[k] = _placed_as(p.grad, p) if p.grad is not None else torch.zeros_like(p)
             p.grad = None
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
@@ -97,12 +121,13 @@ def make_train_step(model: Model, opt_cfg: OptConfig, parallel: ParallelConfig,
         params = state.params
         m = parallel.microbatches
         if m > 1:
-            # grads summed in f32, then averaged; the loss averaged; the
-            # metrics of the last microbatch
-            acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            # grads summed in f32 (placed as the params), then averaged;
+            # the loss averaged; the metrics of the last microbatch
+            acc = {k: torch.zeros_like(p, dtype=torch.float32,
+                                       memory_format=torch.contiguous_format)
                    for k, p in params.items()}
             loss = 0.0
-            for mb in _microbatches(batch, m):
+            for mb in _microbatches(batch, m, model, mesh, parallel):
                 l, metrics, g = grads_of(params, mb)
                 for k, gk in g.items():
                     acc[k].add_(gk.float())
@@ -119,7 +144,7 @@ def make_train_step(model: Model, opt_cfg: OptConfig, parallel: ParallelConfig,
         metrics["loss"] = loss
         return TrainState(params, new_opt, state.err), metrics
 
-    return train_step
+    return under_mesh(train_step, model, mesh)
 
 
 def make_eval_step(model: Model, parallel: ParallelConfig, mesh=None):
