@@ -183,9 +183,9 @@ a kernel's plain version:
              held exactly to the line through two shallow captures (1 and 2
              layers; 5 and 10). Then rank 0's program under a mesh
              (core.capture_sharded_step over the rank's local shards, a
-             fake process group): phase 8's gemma3-4b prefill on (2, 4),
-             whose K1 nodes times its 8 ranks equal the launches phase 8
-             counted, and the forward step of gemma3-4b and qwen3-8b at full
+             fake process group): phase 8's bf16 gemma3-4b prefill (6
+             layers) on (2, 4), whose K1 nodes times its 8 ranks equal the
+             launches phase 8 counted, and the forward step of gemma3-4b and qwen3-8b at full
              depth on the production mesh (16, 16) and of qwen3-8b on
              (2, 16, 16): one K1 node a layer, no allocation and no launch,
              the FLOPs a rank and each collective's count and bytes printed;
@@ -193,24 +193,39 @@ a kernel's plain version:
              1, 2 and 4 layers (MESH_TRAIN_CAPTURE): the K1 forward and
              backward nodes a layer that phase 8's sharded train step
              launched a rank and a layer, its FLOPs a rank and every
-             collective's count and bytes exactly linear in depth
+             collective's count and bytes exactly linear in depth; and
+             qwen3-8b's decode step at full depth on (16, 16)
+             (MESH_DECODE_CAPTURES) at decode_32k (B 128, cache 32,768) and
+             long_500k (B 1, cache 524,288, seq_shard_cache), the latter
+             also at half the length: no kernel node, the FLOPs, bytes and
+             collectives printed, and under seq_shard_cache every
+             collective's count and bytes the same at both lengths (no
+             collective moves the cache)
   8. mesh    the serving path sharded over a DeviceMesh under the default
              ParallelConfig's rules (tp, fsdp, sequence parallel), every
              rank simulated on the card by LocalTensorMode
              (parallel.mesh.simulated_ranks), so K1 launches once a layer
-             for each rank on its local heads: gemma3-4b at full width and
-             depth on (2, 4) (B 4 x 2048, 2 q heads over 1 kv head a rank,
-             272 launches) in bf16 and as one superblock (6 layers) in f32,
-             and qwen3-8b at full width and 2 layers on (16, 16) (256 ranks,
-             B 16, 2 q heads a rank over its 8 kv heads whole on every rank;
-             512 launches) in bf16, and in f32 on (2, 16) (32 ranks, the
-             same heads a rank; 64 launches); each
+             for each rank on its local heads: gemma3-4b at full width as
+             one superblock (6 layers) on (2, 4) (B 4 x 2048, 2 q heads over
+             1 kv head a rank, 48 launches) in bf16 and in f32, and qwen3-8b
+             at full width and 1 layer on (16, 16) (256 ranks, B 16, 2 q
+             heads a rank over its 8 kv heads whole on every rank; 256
+             launches) in bf16, and at 2 layers in f32 on (2, 16) (32 ranks,
+             the same heads a rank; 64 launches); each
              sharded prefill's logits and layer 0's k cache against the
              unsharded prefill of the same weights on the card, bf16 within
              DECODE_RTOL and f32 within 1e-3 of the largest value, the
              whole logits the same on every rank (and on 8 ranks the bf16
-             cache within one bf16 ulp, CACHE_RTOL, in f32); the seconds of
-             each run. Then the train step under a mesh (MESH_TRAIN):
+             cache within one bf16 ulp, CACHE_RTOL, in f32); then decode
+             under the mesh from that prefill's cache (4 steps, 2 on the
+             256 ranks), fed the unsharded run's greedy tokens, each step's
+             logits against the unsharded decode from the unsharded cache
+             by the same rule (the f32 runs keep their caches in f32), and
+             no kernel launched in decode; and gemma3-4b's 6 layers in f32
+             on (2, 4) under seq_shard_cache (B 1 x 2048, cache 8192: the
+             cache and the rings split by length over data, decode as
+             flash-decoding over them); the seconds of each run and step.
+             Then the train step under a mesh (MESH_TRAIN):
              gemma3-4b at full width as one superblock (6 layers) in f32 on
              (2, 4), B 4 x S 512, 3 steps of the default ParallelConfig
              (remat dots), each against an unsharded train step from the
@@ -236,6 +251,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -2509,22 +2525,46 @@ def phase_train(torch, card, arch, count_flops=False):
 
 # the serving path under a mesh: every rank of the mesh simulated in this
 # process on the one card (parallel.mesh.simulated_ranks, LocalTensorMode),
-# so each K1 call launches once for each rank. (arch, layers or None for all,
-# mesh, batch, prompt, dtype, rule): the sharded prefill's logits against the
-# unsharded prefill of the same weights, within rule x max |logit|: bf16
-# rounds differently where the ranks sum partial products (PERF.md's bf16
-# rule, DECODE_RTOL), f32 only in summation order (1e-3). gemma3-4b on (2, 4):
-# 2 q heads and 1 kv head a rank; qwen3-8b on the production mesh (16, 16):
-# 2 q heads a rank and its 8 kv heads whole on every rank (the GQA trap), 16
-# sequences so that the batch splits over the data axis; its f32 check runs
-# on (2, 16), the same split of the heads: on (16, 16) each of the 16 data
-# ranks would gather the f32 weights whole over its embed dim (FSDP), 16 x
-# 4.1 GB, more than the card holds beside the rest
+# so each K1 call launches once for each rank. Each run: the sharded
+# prefill's logits against the unsharded prefill of the same weights, within
+# rule x max |logit|: bf16 rounds differently where the ranks sum partial
+# products (PERF.md's bf16 rule, DECODE_RTOL), f32 only in summation order
+# (1e-3); then `steps` decode steps under the mesh from the prefill's cache,
+# fed the unsharded run's greedy tokens, each step's logits against the
+# unsharded decode's from the unsharded cache by the same rule. gemma3-4b on
+# (2, 4) at full width as one superblock (5 local + 1 global layers): 2 q
+# heads and 1 kv head a rank; qwen3-8b at full width and 1 layer on the
+# production mesh (16, 16): 2 q heads a rank and its 8 kv heads whole on
+# every rank (the GQA trap), 16 sequences so that the batch splits over the
+# data axis; its f32 check runs on (2, 16) at 2 layers, the same split of the
+# heads: on (16, 16) each of the 16 data ranks would gather the f32 weights
+# whole over its embed dim (FSDP), 16 x 4.1 GB, more than the card holds
+# beside the rest. The last run is long_500k's setting (seq_shard_cache): one
+# sequence, its cache of 8192 and the local layers' rings of 1024 split by
+# length over the data axis, decode as flash-decoding over them. LocalTensorMode
+# runs each operator once a rank, one rank after another (~0.7 s a layer and
+# a decode step on 8 ranks, ~17 s a layer on 256): the bf16 gemma3-4b run
+# was cut from 34 layers and qwen3-8b's 256 ranks from 2 when decode came in,
+# to keep chip_smoke.py within its time
+class MeshRun(NamedTuple):
+    arch: str
+    layers: int | None          # None: all
+    shape: tuple
+    batch: int
+    seq: int
+    dtype: str
+    rtol: float
+    steps: int                  # decode steps after the prefill
+    cache: int = 0              # the cache's length; 0: seq + steps
+    seq_shard_cache: bool = False
+
+
 MESH_RUNS = (
-    (ARCH, None, (2, 4), BATCH, PROMPT, "bfloat16", DECODE_RTOL),
-    (ARCH, 6, (2, 4), BATCH, PROMPT, "float32", 1e-3),
-    (QWEN, 2, (16, 16), 16, PROMPT, "bfloat16", DECODE_RTOL),
-    (QWEN, 2, (2, 16), BATCH, PROMPT, "float32", 1e-3),
+    MeshRun(ARCH, 6, (2, 4), BATCH, PROMPT, "bfloat16", DECODE_RTOL, 4),
+    MeshRun(ARCH, 6, (2, 4), BATCH, PROMPT, "float32", 1e-3, 4),
+    MeshRun(QWEN, 1, (16, 16), 16, PROMPT, "bfloat16", DECODE_RTOL, 2),
+    MeshRun(QWEN, 2, (2, 16), BATCH, PROMPT, "float32", 1e-3, 4),
+    MeshRun(ARCH, 6, (2, 4), 1, PROMPT, "float32", 1e-3, 4, cache=8192, seq_shard_cache=True),
 )
 MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 # the decode cache is bf16 whatever the params (attention.CACHE_DTYPE): an f32
@@ -2545,25 +2585,44 @@ def mesh_config(get_config, arch, layers):
 
 def phase_mesh(torch, card):
     """MESH_RUNS: each config's prefill sharded over its mesh under the
-    rules of the default ParallelConfig (tp, fsdp, sequence parallel), every
-    rank simulated on the card, against the unsharded prefill of the same
-    seeded weights and tokens. Launch counts are reset just before the
+    rules of the default ParallelConfig (tp, fsdp, sequence parallel; and
+    seq_shard_cache where the run says), every rank simulated on the card,
+    against the unsharded prefill of the same seeded weights and tokens;
+    then decode under the mesh from the sharded prefill's cache, each step
+    against the unsharded decode from the unsharded cache, both fed the
+    unsharded run's greedy tokens. Launch counts are reset just before the
     sharded prefill and read just after: K1 launches ranks x layers times
-    and no other kernel runs. Returns {path: launches and ms}."""
+    and no other kernel runs; reset again just before the decode steps and
+    read just after: no kernel launches in decode. Returns {path: launches,
+    ms and the decode's readings}."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.configs.registry import get_config
-    from repro_torch.models import Model
+    from repro_torch.models import Model, attention
     from repro_torch.parallel import sharding
     from repro_torch.parallel.mesh import make_mesh, simulated_ranks
-    from repro_torch.train.serve_step import make_prefill_step
+    from repro_torch.train.serve_step import make_decode_step, make_prefill_step
 
     import torch.distributed._local_tensor as local_tensor
     log(f"[mesh] torch {torch.__version__}: LocalTensorMode "
         f"{'present' if hasattr(local_tensor, 'LocalTensorMode') else 'MISSING'}")
     counters = _launch_counters()
-    par = ParallelConfig()
-    out = {}
-    for arch, layers, shape, batch, seq, dtype, rtol in MESH_RUNS:
+
+    def launches():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    out, t_decode_all, cache_dtype = {}, 0.0, attention.CACHE_DTYPE
+    for run in MESH_RUNS:
+        arch, layers, shape, batch, seq, dtype, rtol, steps, cache_len, seq_shard = run
+        # an f32 run holds the mesh to f32 summation order alone, so its
+        # decode cache is f32 too: in bf16 two sums some ulps apart can round
+        # a cached value one bf16 ulp apart (as f32_replay's caches)
+        attention.CACHE_DTYPE = torch.float32 if dtype == "float32" else cache_dtype
+        cache_len = cache_len or seq + steps
+        par = ParallelConfig(seq_shard_cache=seq_shard)
         cfg = mesh_config(get_config, arch, layers)
         world = math.prod(shape)
         torch.cuda.empty_cache()
@@ -2572,32 +2631,57 @@ def phase_mesh(torch, card):
         model = Model(cfg, device="cuda", seed=SEED).to(getattr(torch, dtype))
         gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
         tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device="cuda")
-        ref, ref_cache = make_prefill_step(model, seq)(tokens)
-        ref_k = ref_cache["layers"][0]["attn"]["k"] if world <= CACHE_CHECK_RANKS else None
-        del ref_cache
+        ref, ref_cache = make_prefill_step(model, cache_len)(tokens)
+        ref_k = (ref_cache["layers"][0]["attn"]["k"].clone() if world <= CACHE_CHECK_RANKS
+                 else None)
+        # the unsharded decode, greedy: its tokens feed both runs
+        decode = make_decode_step(model)
+        feed, ref_steps = [ref.argmax(dim=-1, keepdim=True)], []
+        for _ in range(steps):
+            logits, ref_cache = decode(feed[-1], ref_cache)
+            ref_steps.append(logits)
+            feed.append(logits.argmax(dim=-1, keepdim=True))
+        del ref_cache, decode
         torch.cuda.synchronize()
         t_ref = time.perf_counter() - t0
-        with simulated_ranks(world):
+        with simulated_ranks(world) as mode:
             t0 = time.perf_counter()
             mesh = make_mesh(shape, MESH_AXES[len(shape)])
             sharding.shard_model(model, mesh, par)
             inputs = sharding.shard_inputs({"tokens": tokens},
                                            sharding.batch_specs(model, "prefill", batch, seq),
                                            mesh, par)
-            prefill = make_prefill_step(model, seq, parallel=par, mesh=mesh)
+            prefill = make_prefill_step(model, cache_len, parallel=par, mesh=mesh)
             torch.cuda.synchronize()
             t_shard = time.perf_counter() - t0
-            for fn in counters.values():
-                fn.launches = 0
+            reset()
             t0 = time.perf_counter()
             logits, cache = prefill(inputs["tokens"])
             torch.cuda.synchronize()
             t_prefill = time.perf_counter() - t0
-            launches = {name: fn.launches for name, fn in counters.items()}
+            prefill_launches = launches()
             got = logits.full_tensor()
             got_k = cache["layers"][0]["attn"]["k"].full_tensor() if ref_k is not None else None
-            del logits, cache, inputs, prefill
-        # every rank holds the same whole logits: reconcile checks it, keeps one
+            del logits, inputs, prefill
+            decode = make_decode_step(model, parallel=par, mesh=mesh)
+            tok_specs = sharding.batch_specs(model, "decode", batch, 1)
+            dec, t_steps = [], []
+            reset()
+            for i in range(steps):
+                tok = sharding.shard_inputs({"token": feed[i]}, tok_specs, mesh, par)["token"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = decode(tok, cache)
+                torch.cuda.synchronize()
+                t_steps.append(time.perf_counter() - t0)
+                whole = logits.full_tensor()
+                with mode.disable():
+                    # every rank holds the same whole logits: reconcile checks it
+                    dec.append(whole.reconcile())
+                del logits, whole
+            decode_launches = launches()
+            placed = str(cache["layers"][0]["attn"]["k"].placements)
+            del cache, decode
         got = got.reconcile()
         err = (got.float() - ref.float()).abs().max().item()
         top = ref.float().abs().max().item()
@@ -2607,29 +2691,55 @@ def phase_mesh(torch, card):
             k_err = (got_k.float() - ref_k.float()).abs().max().item()
             k_top = ref_k.float().abs().max().item()
         finite = bool(torch.isfinite(got).all())
-        path = f"serve {cfg.name} {dtype} mesh {shape}"
+        path = (f"serve {cfg.name} {dtype} mesh {shape}"
+                + (" seq_shard_cache" if seq_shard else ""))
         want = {name: world * cfg.num_layers if name == "flash_attention" else 0
                 for name in counters}
-        log(f"[mesh] {path}: {world} ranks, B {batch} x S {seq}: unsharded prefill "
-            f"{t_ref:.1f} s (init included), sharding {t_shard:.1f} s, sharded prefill "
-            f"{t_prefill * 1e3:.1f} ms; launches {launches}; max |logit - unsharded| "
-            f"{err:.3e} of max |logit| {top:.3e} ({err / top:.2e}, rule {rtol:g}); "
-            + (f"layer 0's bf16 k cache {k_err:.3e} of {k_top:.3e} (rule "
+        log(f"[mesh] {path}: {world} ranks, B {batch} x S {seq}, cache {cache_len}: unsharded "
+            f"prefill and {steps} decode steps {t_ref:.1f} s (init included), sharding "
+            f"{t_shard:.1f} s, sharded prefill {t_prefill * 1e3:.1f} ms; launches "
+            f"{prefill_launches}; max |logit - unsharded| {err:.3e} of max |logit| {top:.3e} "
+            f"({err / top:.2e}, rule {rtol:g}); "
+            + (f"layer 0's {str(ref_k.dtype)[6:]} k cache {k_err:.3e} of {k_top:.3e} (rule "
                f"{max(rtol, CACHE_RTOL):g}); " if ref_k is not None else "")
             + f"peak {torch.cuda.max_memory_allocated() / 1e9:.1f} "
             f"GB; {card}")
-        if launches != want:
-            fail(f"{path}: launches {launches}, want {want}")
+        if prefill_launches != want:
+            fail(f"{path}: launches {prefill_launches}, want {want}")
         k_rtol = max(rtol, CACHE_RTOL)
         if not finite or tuple(got.shape) != tuple(ref.shape) or err > rtol * top \
                 or k_err > k_rtol * k_top:
             fail(f"{path}: finite {finite}, shape {tuple(got.shape)} (want "
                  f"{tuple(ref.shape)}), logits {err:.3e} > {rtol:g} x {top:.3e} or k cache "
                  f"{k_err:.3e} > {k_rtol:g} x {k_top:.3e}")
-        out[path] = {"launches": launches, "prefill_ms": t_prefill * 1e3, "ranks": world,
+        steps_out = []
+        for i, (g, r, s) in enumerate(zip(dec, ref_steps, t_steps)):
+            d_err = (g.float() - r.float()).abs().max().item()
+            d_top = r.float().abs().max().item()
+            ok = bool(torch.isfinite(g).all()) and tuple(g.shape) == tuple(r.shape) \
+                and d_err <= rtol * d_top
+            log(f"[mesh] {path} decode step {i} (position {seq + i}): max |logit - unsharded "
+                f"decode| {d_err:.3e} of max |logit| {d_top:.3e} ({d_err / d_top:.2e}, rule "
+                f"{rtol:g}); {s * 1e3:.1f} ms on {world} simulated ranks")
+            if not ok:
+                fail(f"{path} decode step {i}: shape {tuple(g.shape)} (want {tuple(r.shape)}), "
+                     f"logits {d_err:.3e} > {rtol:g} x {d_top:.3e} or not finite")
+            steps_out.append({"err": d_err, "max_logit": d_top, "ms": s * 1e3})
+        t_decode_all += sum(t_steps)
+        log(f"[mesh] {path}: decode under the mesh, {steps} steps in {sum(t_steps):.1f} s; "
+            f"launches {decode_launches}; layer 0's k cache placed {placed}")
+        if any(decode_launches.values()):
+            fail(f"{path}: decode launched {decode_launches}, want none")
+        out[path] = {"launches": prefill_launches, "prefill_ms": t_prefill * 1e3, "ranks": world,
                      "layers": cfg.num_layers, "err": err, "max_logit": top,
-                     "config": cfg.name, "mesh": list(shape)}
-        del model, ref, ref_k, got, got_k
+                     "config": cfg.name, "mesh": list(shape), "dtype": dtype,
+                     "seq_shard_cache": seq_shard,
+                     "decode": {"launches": decode_launches, "steps": steps_out,
+                                "placed": placed}}
+        del model, ref, ref_k, got, got_k, dec, ref_steps, feed
+    attention.CACHE_DTYPE = cache_dtype
+    log(f"[mesh] decode under the mesh: {t_decode_all:.1f} s of steps over "
+        f"{len(MESH_RUNS)} runs")
     torch.cuda.empty_cache()
     return out
 
@@ -2889,12 +2999,22 @@ CAPTURED_TRAIN = (ARCH, SSM_ARCH, RG_ARCH)
 # in whole superblocks of 5
 CAPTURE_DEEP = ((DBRX, "train", (1, 2, 40)), (LLAMA, "prefill", (5, 10, 100)))
 # rank 0's program under a mesh (parallel.mesh.fake_process_group, the trace
-# over the rank's local shards): (arch, step, mesh, batch) at PROMPT tokens a
-# sequence, full depth: the measured gemma3-4b mesh path of phase 8, and the
-# forward step on the production meshes (launch/mesh.py), 256 and 512 ranks,
-# one sequence a (pod, data) rank
-MESH_CAPTURES = ((ARCH, "prefill", (2, 4), BATCH), (ARCH, "forward", (16, 16), 16),
-                 (QWEN, "forward", (16, 16), 16), (QWEN, "forward", (2, 16, 16), 32))
+# over the rank's local shards): (arch, layers or None for all, step, mesh,
+# batch) at PROMPT tokens a sequence: the measured bf16 gemma3-4b mesh path of
+# phase 8, and the forward step at full depth on the production meshes
+# (launch/mesh.py), 256 and 512 ranks, one sequence a (pod, data) rank
+MESH_CAPTURES = ((ARCH, MESH_RUNS[0].layers, "prefill", (2, 4), BATCH),
+                 (ARCH, None, "forward", (16, 16), 16), (QWEN, None, "forward", (16, 16), 16),
+                 (QWEN, None, "forward", (2, 16, 16), 32))
+# rank 0's program of the decode step on the production mesh (16, 16),
+# qwen3-8b at full width and depth: (mesh, batch, cache length,
+# seq_shard_cache), the decode_32k cell (B 128, cache 32,768) and the
+# long_500k cell (B 1, cache 524,288, its length split over the data axis),
+# the latter also at half the length: under seq_shard_cache no collective
+# moves the cache, so every collective's count and bytes are the same at both
+# lengths. No kernel node: decode launches none
+MESH_DECODE_CAPTURES = (((16, 16), 128, 32_768, False), ((16, 16), 1, 524_288, True),
+                        ((16, 16), 1, 262_144, True))
 # rank 0's program of the FSDP train step on the production mesh (16, 16),
 # qwen3-8b at full width, one sequence of TRAIN_SEQ a data rank, at these
 # depths: its FLOPs and every collective's count and bytes held exactly
@@ -2976,13 +3096,16 @@ def capture_one(torch, cfg, what):
 
 def capture_mesh(torch, cfg, what):
     """(capture, parameters) of rank 0's program of a step under a mesh:
-    `what` is "<prefill, forward or train>@<mesh, as 2x16x16>:B<batch>"; a fake
-    process group of the mesh's ranks, the production mesh where the shape is
-    one; the model sharded under the default ParallelConfig's rules, the batch
-    split as batch_specs say, and the trace taken over rank 0's shards
-    (core.capture_sharded_step). A train step (FSDP over the data axis,
-    remat dots) takes TRAIN_SEQ tokens a sequence, TRAIN_OPT and its moments
-    sharded as the params; the others PROMPT tokens."""
+    `what` is "<prefill, forward, train or decode>@<mesh, as 2x16x16>:B<batch>"
+    (mesh_what), a decode step's also ":L<cache length>" and ":seq" under
+    seq_shard_cache; a fake process group of the mesh's ranks, the production
+    mesh where the shape is one; the model sharded under the default
+    ParallelConfig's rules, the batch split as batch_specs say, and the trace
+    taken over rank 0's shards (core.capture_sharded_step). A train step
+    (FSDP over the data axis, remat dots) takes TRAIN_SEQ tokens a sequence,
+    TRAIN_OPT and its moments sharded as the params; a decode step one token
+    against an empty sharded cache (Model.init_cache under the mesh) at its
+    last position; the others PROMPT tokens."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.core import capture_sharded_step, fake_mode
     from repro_torch.launch.mesh import make_production_mesh
@@ -2990,13 +3113,14 @@ def capture_mesh(torch, cfg, what):
     from repro_torch.parallel import sharding
     from repro_torch.parallel.mesh import fake_process_group, make_mesh
     from repro_torch.train.optimizer import OptConfig
-    from repro_torch.train.serve_step import make_forward_step, make_prefill_step
+    from repro_torch.train.serve_step import (make_decode_step, make_forward_step,
+                                              make_prefill_step)
     from repro_torch.train.train_step import init_train_state, make_train_step
 
     step, rest = what.split("@")
-    shape, batch = rest.split(":B")
-    shape, batch = tuple(int(n) for n in shape.split("x")), int(batch)
-    par = ParallelConfig()
+    shape, batch, *decode = rest.split(":")
+    shape, batch = tuple(int(n) for n in shape.split("x")), int(batch[1:])
+    par = ParallelConfig(seq_shard_cache="seq" in decode)
     with fake_process_group(math.prod(shape)):
         if shape in ((16, 16), (2, 16, 16)):
             mesh = make_production_mesh(multi_pod=len(shape) == 3)
@@ -3012,6 +3136,15 @@ def capture_mesh(torch, cfg, what):
                     sharding.batch_specs(model, "train", batch, TRAIN_SEQ), mesh, par)
                 fn = make_train_step(model, OptConfig(**TRAIN_OPT), par, mesh)
                 args = [init_train_state(model), inputs]
+            elif step == "decode":
+                cache_len = int(decode[0][1:])
+                token = sharding.shard_inputs(
+                    {"token": torch.empty(batch, 1, dtype=torch.long, device="cuda")},
+                    sharding.batch_specs(model, "decode", batch, 1), mesh, par)["token"]
+                cache = model.init_cache(batch, cache_len, mesh=mesh, parallel=par)
+                cache["pos"] = cache_len - 1
+                fn = make_decode_step(model, parallel=par, mesh=mesh)
+                args = [token, cache]
             else:
                 tokens = torch.empty(batch, PROMPT, dtype=torch.long, device="cuda")
                 inputs = sharding.shard_inputs(
@@ -3025,9 +3158,10 @@ def capture_mesh(torch, cfg, what):
     return cap, n_params
 
 
-def mesh_what(step, mesh, batch):
+def mesh_what(step, mesh, batch, cache_len=0, seq_shard_cache=False):
     """The `what` of a capture under a mesh (capture_mesh)."""
-    return f"{step}@{'x'.join(map(str, mesh))}:B{batch}"
+    return (f"{step}@{'x'.join(map(str, mesh))}:B{batch}" + (f":L{cache_len}" if cache_len else "")
+            + (":seq" if seq_shard_cache else ""))
 
 
 def capture_main(torch):
@@ -3062,8 +3196,9 @@ def capture_jobs(get_config):
         nsb = len(cfg.superblock)
         jobs += [(cfg.replace(name=f"{arch}-{L}layer", num_layers=L, sb_repeat=L // nsb), what)
                  for L in depths]
-    jobs += [(get_config(arch), mesh_what(step, mesh, batch))
-             for arch, step, mesh, batch in MESH_CAPTURES]
+    jobs += [(mesh_config(get_config, arch, layers), mesh_what(step, mesh, batch))
+             for arch, layers, step, mesh, batch in MESH_CAPTURES]
+    jobs += [(get_config(QWEN), mesh_what("decode", *c)) for c in MESH_DECODE_CAPTURES]
     arch, mesh, batch, depths = MESH_TRAIN_CAPTURE
     jobs += [(mesh_config(get_config, arch, L), mesh_what("train", mesh, batch))
              for L in depths]
@@ -3151,7 +3286,10 @@ def phase_capture(torch, card, proc, measured, real_flops, mesh_measured, mesh_t
     layer, the K1 forward and backward nodes that phase 8's sharded train
     step launched a rank and a layer (`mesh_train`, phase_mesh_train's), and
     its FLOPs and each collective's count and bytes are exactly linear in
-    depth. Returns the captures."""
+    depth; (vi) rank 0's program of qwen3-8b's decode step on (16, 16)
+    (MESH_DECODE_CAPTURES) has no kernel node, and under seq_shard_cache
+    its collectives are the same at both cache lengths. Returns the
+    captures."""
     if proc.wait(timeout=900) != 0:
         with open(CAPTURE_OUT + ".log") as f:
             fail(f"capture process exited {proc.returncode}:\n{f.read()[-4000:]}")
@@ -3206,10 +3344,12 @@ def phase_capture(torch, card, proc, measured, real_flops, mesh_measured, mesh_t
             + f"): {cf['seconds']:.1f} s, {cf['n_nodes']} graph nodes, {cf['parsed_flops']:.6e} "
             f"FLOPs = flops({d1}) + {step} x (flops({d2}) - flops({d1})), exactly")
     from repro_torch.configs.registry import get_config
-    runs = {(r["config"], tuple(r["mesh"])): r for r in mesh_measured.values()}
-    for arch, step, shape, batch in MESH_CAPTURES:
-        c = by_key[(arch, mesh_what(step, shape, batch))]
-        layers = get_config(arch).num_layers
+    runs = {(r["config"], tuple(r["mesh"])): r for r in mesh_measured.values()
+            if r["dtype"] == "bfloat16"}
+    for arch, layers, step, shape, batch in MESH_CAPTURES:
+        cfg = mesh_config(get_config, arch, layers)
+        c = by_key[(cfg.name, mesh_what(step, shape, batch))]
+        arch, layers = cfg.name, cfg.num_layers
         comm = {k: f"{v['count']} ({v['bytes'] / 1e6:.1f} MB)" for k, v in c["comm"].items()}
         log(f"[capture] rank 0 of {arch} {step} on mesh {shape} ({c['world']} ranks, B "
             f"{batch} x S {PROMPT}): {c['parsed_flops']:.6e} FLOPs a rank, COMM_COLL "
@@ -3228,7 +3368,35 @@ def phase_capture(torch, card, proc, measured, real_flops, mesh_measured, mesh_t
             log(f"[capture] rank 0 of {arch} {step} on mesh {shape}: K1 nodes x ranks = "
                 f"the simulated run's launches ({want})")
     check_train_capture(by_key, mesh_train)
+    check_decode_captures(by_key)
     return caps
+
+
+def check_decode_captures(by_key):
+    """Gate (vi) of phase_capture: rank 0's program of qwen3-8b's decode step
+    on (16, 16) (MESH_DECODE_CAPTURES) has no kernel node, and under
+    seq_shard_cache every collective's count and bytes are the same at both
+    cache lengths (no collective moves the cache)."""
+    seq = []
+    for shape, batch, cache_len, seq_shard in MESH_DECODE_CAPTURES:
+        c = by_key[(QWEN, mesh_what("decode", shape, batch, cache_len, seq_shard))]
+        comm = {k: f"{v['count']} ({v['bytes'] / 1e6:.6f} MB)" for k, v in sorted(c["comm"].items())}
+        log(f"[capture] rank 0 of {QWEN} decode on mesh {shape} ({c['world']} ranks, B {batch}, "
+            f"cache {cache_len}{', seq_shard_cache' if seq_shard else ''}): "
+            f"{c['parsed_flops']:.6e} FLOPs a rank, {c['parsed_hbm_bytes']:.6e} bytes, COMM_COLL "
+            f"{comm}, {c['comm_bytes'] / 1e6:.6f} MB in all; kernel nodes {c['kernel_nodes']}; "
+            f"{c['seconds']:.1f} s")
+        if c["world"] != math.prod(shape) or any(c["kernel_launch_nodes"].values()):
+            fail(f"capture {QWEN} decode mesh {shape} cache {cache_len}: world {c['world']}, "
+                 f"kernel nodes {c['kernel_launch_nodes']}, want none")
+        if seq_shard:
+            seq.append((cache_len, c["comm"]))
+    (l1, c1), (l2, c2) = seq
+    if c1 != c2:
+        fail(f"capture {QWEN} decode under seq_shard_cache: collectives at cache {l1} {c1}, "
+             f"at {l2} {c2}")
+    log(f"[capture] rank 0 of {QWEN} decode under seq_shard_cache: every collective's count "
+        f"and bytes the same at cache {l2} and {l1}: no collective moves the cache")
 
 
 def main(argv=None):

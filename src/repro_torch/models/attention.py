@@ -25,13 +25,14 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed import _functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import CROSS_ATTN, ENC_ATTN, GLOBAL_ATTN, LOCAL_ATTN
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.models.layers import (ParamSpec, local_product, rms_norm, rms_norm_specs,
-                                       rope)
+from repro_torch.models.layers import (ParamSpec, first_index, local_product, rms_norm,
+                                       rms_norm_specs, rope)
 
 CACHE_DTYPE = torch.bfloat16      # the decode cache is bf16 whatever the params
 
@@ -250,6 +251,9 @@ def attention_decode(p, x, cache, pos: int, cfg, ctx, kind):
         raise ValueError("an encoder layer has no decode step")
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, None, cfg, ctx, _theta(cfg, kind), positions, kind)
+    if isinstance(q, DTensor):
+        o = _sharded_decode(q, k_new, v_new, cache, pos, kind, cfg, ctx, scale)
+        return _out_proj(p, o, ctx), cache
     qg = _group(q, cfg.num_kv_heads)                    # (B,1,KV,G,hd)
 
     k_cache, v_cache = cache["k"], cache["v"]
@@ -258,15 +262,19 @@ def attention_decode(p, x, cache, pos: int, cfg, ctx, kind):
     k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
 
-    slots = torch.arange(L, device=x.device)
+    valid = _valid_slots(torch.arange(L, device=x.device), pos, L, kind, cfg)
+    o = _decode_attention(qg, k_cache, v_cache, valid, scale)
+    return _out_proj(p, _ungroup(o), ctx), cache
+
+
+def _valid_slots(slots, pos, L, kind, cfg):
+    """Which of the cache's ``slots`` (global indices) hold a position the
+    token at ``pos`` attends to."""
     if kind == LOCAL_ATTN:
         # slot s holds absolute position pos - ((pos - s) mod L); valid if >= 0
         p_slot = pos - ((pos - slots) % L)
-        valid = (p_slot >= 0) & (p_slot <= pos) & (pos - p_slot < cfg.local_window)
-    else:
-        valid = slots <= pos
-    o = _decode_attention(qg, k_cache, v_cache, valid, scale)
-    return _out_proj(p, _ungroup(o), ctx), cache
+        return (p_slot >= 0) & (p_slot <= pos) & (pos - p_slot < cfg.local_window)
+    return slots <= pos
 
 
 def _decode_attention(qg, k_cache, v_cache, valid, scale):
@@ -278,3 +286,112 @@ def _decode_attention(qg, k_cache, v_cache, valid, scale):
         s = s.masked_fill(~valid, NEG_INF)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bkgqs,bskh->bqkgh", w.to(v_cache.dtype), v_cache)
+
+
+# ---------------------------------------------------------------------------
+# decode under a mesh: flash-decoding over a length-sharded cache
+# ---------------------------------------------------------------------------
+
+def _sharded_decode(q, k_new, v_new, cache, pos, kind, cfg, ctx, scale):
+    """Decode attention of q (B,1,H,hd) and the new k/v (B,1,KV,hd),
+    DTensors, over ``cache``, whose k and v are placed (or redistributed, at
+    the first step) by the cache rules: (batch, cache, kv_heads), the
+    reference's call site. Returns o (B,1,H,hd) placed as q.
+
+    Every rank works on its local shards, so no collective moves the cache:
+      * the new k/v goes into slot ``pos`` (``pos % L`` for a local ring) on
+        the rank whose shard of the length holds it, in place; every rank
+        computes the same clamped index, and the others write back what
+        they hold (``_write_slot``);
+      * q is placed as the cache's batch (gathered over a mesh axis that
+        splits the cache's length: B x H x hd, small) with its heads as
+        they are, and each rank's q heads meet their own kv heads (the GQA
+        trap: a rank's q heads share kv heads that are whole on every rank,
+        picked by index);
+      * where the cache's length is split (``seq_shard_cache``), the scores'
+        max and the sum of their exps are all-reduced over the mesh dims
+        that split it (flash-decoding), the weights rounded to the cache
+        dtype as unsharded, and each rank's P.V partial reduced in f32 and
+        rounded to the cache dtype once, after the sum, as the unsharded
+        product rounds it (GSPMD's program rounds each partial to bf16
+        before its all-reduce: ROADMAP queue 3).
+    Validity is computed on each rank's global slot indices."""
+    k_cache = ctx.shard(cache["k"], "batch", "cache", "kv_heads", None)
+    v_cache = ctx.shard(cache["v"], "batch", "cache", "kv_heads", None)
+    cache["k"], cache["v"] = k_cache, v_cache
+    mesh, cpl = k_cache.device_mesh, k_cache.placements
+    L = k_cache.shape[1]
+    split = [i for i, p in enumerate(cpl) if p == Shard(1)]
+    start = first_index(k_cache, 1) if split else 0
+    slot = pos % L if kind == LOCAL_ATTN else pos
+    if slot >= L:
+        # as the unsharded write's IndexError: no rank's shard holds the slot
+        raise IndexError(f"decode position {pos} is past the cache's {L} slots")
+    # the new k/v whole along every mesh dim that splits the length
+    new_pl = [Replicate() if p == Shard(1) else p for p in cpl]
+    for c, new in ((k_cache, k_new), (v_cache, v_new)):
+        _write_slot(c.to_local(), new.to(c.dtype).redistribute(mesh, new_pl).to_local(),
+                    slot - start)
+
+    qpl = [Shard(0) if c == Shard(0) else p if p == Shard(2) else Replicate()
+           for p, c in zip(q.placements, cpl)]
+    qd = q.redistribute(mesh, qpl)
+    ql, kl, vl = qd.to_local(), k_cache.to_local(), v_cache.to_local()
+    H, KV = q.shape[2], k_cache.shape[2]
+    g = H // KV
+    mq, mk = (math.prod(mesh.size(i) for i, p in enumerate(pl) if p == Shard(2))
+              for pl in (qpl, cpl))
+    hl, gl = H // mq, g                 # where mk == mq, the rank's kv heads are its q heads'
+    if mk < mq:
+        # kv heads whole (they do not divide the model axis that splits q's):
+        # q heads [r*hl, (r+1)*hl) use kv heads i // g, in groups of
+        # gl = gcd(g, hl) q heads a kv head
+        gl = math.gcd(g, hl)
+        idx = (first_index(qd, 2) + torch.arange(0, hl, gl, device=ql.device)) // g
+        kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+    b, _, _, hd = ql.shape
+    qg = ql.reshape(b, 1, hl // gl, gl, hd)
+    valid = _valid_slots(start + torch.arange(kl.shape[1], device=ql.device), pos, L, kind, cfg)
+    if split:
+        o = _flash_decode(qg, kl, vl, valid, scale, mesh, split)
+    else:
+        o = _decode_attention(qg, kl, vl, valid, scale)
+    o = DTensor.from_local(o.reshape(b, 1, hl, hd), mesh, qpl, run_check=False)
+    return o.redistribute(mesh, q.placements)
+
+
+def _write_slot(local, new, idx):
+    """Write ``new`` (b,1,kv,hd) into slot ``idx`` of ``local`` (b,L,kv,hd),
+    this rank's shard of a cache, in place: an int where the rank holds
+    the whole length, else a 0-d tensor (the global slot less the first
+    index of the rank's shard; one value a rank under simulated ranks),
+    written only where it falls in the shard."""
+    if isinstance(idx, int):
+        local[:, idx] = new[:, 0]
+        return
+    n = local.shape[1]
+    mine = (idx >= 0) & (idx < n)
+    i = idx.clamp(0, n - 1).reshape(1)
+    local.index_copy_(1, i, torch.where(mine, new, local.index_select(1, i)))
+
+
+def _flash_decode(qg, k, v, valid, scale, mesh, dims):
+    """``_decode_attention`` of one query token over a cache whose length is
+    split over the mesh dims ``dims``: k/v (b, L/n, kv, hd) this rank's
+    shard. The softmax's max and sum are all-reduced over ``dims``; each
+    rank's P.V partial is taken in f32 and summed over ``dims`` before the
+    one rounding to the cache dtype."""
+    s = _einsum("bqkgh,bskh->bkgqs", qg, k).float() * scale
+    s = s.masked_fill(~valid, NEG_INF)
+    m = _all_reduce(s.amax(dim=-1, keepdim=True), "max", mesh, dims)
+    e = torch.exp(s - m)
+    w = e / _all_reduce(e.sum(dim=-1, keepdim=True), "sum", mesh, dims)
+    o = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype).float(), v.float())
+    return _all_reduce(o, "sum", mesh, dims).to(v.dtype)
+
+
+def _all_reduce(t, op, mesh, dims):
+    """The local ``t`` all-reduced with ``op`` over the mesh dims ``dims``."""
+    for i in dims:
+        t = funcol.all_reduce(t, op, (mesh, i))
+    return t

@@ -42,7 +42,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (ATTENTION_KINDS, CROSS_ATTN, ENC_ATTN,
-                                      GLOBAL_ATTN, RGLRU, SSD, ModelConfig)
+                                      GLOBAL_ATTN, RGLRU, SSD, ModelConfig,
+                                      ParallelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, rglru, ssm
@@ -169,6 +170,7 @@ def apply_layer_decode(p, h, layer_cache, pos, kind, cfg, ctx):
         h = h + out
     if cfg.d_ff:
         h, _ = _feed_forward(p, h, cfg, ctx)
+    h = ctx.shard(h, "batch", "seq", "embed")
     return h, layer_cache
 
 
@@ -373,24 +375,40 @@ class Model(nn.Module):
         logits = unembed_apply(self._table(), h[:, -1:], self.cfg.logits_soft_cap, ctx)
         return logits[:, 0], {"pos": tokens.shape[1], "layers": caches}
 
-    def init_cache(self, batch, cache_len):
-        return {"pos": 0, "layers": [
-            _materialize(init_layer_cache_specs(self.cfg, kind, batch, cache_len),
-                         self.device)
-            for kind in self.cfg.layer_kinds]}
+    def cache_specs(self, batch, cache_len):
+        """The ParamSpec tree of each layer's decode cache."""
+        return [init_layer_cache_specs(self.cfg, kind, batch, cache_len)
+                for kind in self.cfg.layer_kinds]
+
+    def init_cache(self, batch, cache_len, *, mesh=None, parallel=None):
+        """An empty decode cache; under a mesh (a model sharded by
+        ``parallel.sharding.shard_model``) each rank makes only its shard,
+        placed by the cache rules of ``parallel`` (``sharding.init_cache``)."""
+        if mesh is not None:
+            # imported here: parallel.sharding imports the models package
+            from repro_torch.parallel import sharding
+            return sharding.init_cache(self, batch, cache_len, mesh,
+                                       parallel or ParallelConfig())
+        return {"pos": 0, "layers": [_materialize(s, self.device)
+                                     for s in self.cache_specs(batch, cache_len)]}
 
     def decode_step(self, token, cache, ctx=None):
         """token (B,1) int; cache from init_cache/prefill, updated in place.
 
-        Returns (logits (B,V), cache with pos advanced by one)."""
+        Returns (logits (B,V), cache with pos advanced by one). Under a mesh
+        (``ctx.shard_fn`` set, the model sharded) the token and the cache may
+        be placed or whole; each layer's cache is placed by the cache rules at
+        its first step (``attention.attention_decode``), and the logits come
+        back as a DTensor split over the vocab."""
         cfg = self.cfg
         ctx = ctx or Ctx()
         pos = cache["pos"]
-        h = embed_apply(self.embed, token, cfg.d_model)
+        h = embed_apply(self.embed, token, cfg.d_model, ctx)
+        h = ctx.shard(h, "batch", "seq", "embed")
         for p, kind, c in zip(self.layers, cfg.layer_kinds, cache["layers"]):
             h, _ = apply_layer_decode(p, h, c, pos, kind, cfg, ctx)
         h = rms_norm(h, self.final_norm["scale"], cfg.norm_eps)
-        logits = unembed_apply(self._table(), h, cfg.logits_soft_cap)[:, 0]
+        logits = unembed_apply(self._table(), h, cfg.logits_soft_cap, ctx)[:, 0]
         return logits, {"pos": pos + 1, "layers": cache["layers"]}
 
     def stacked_ndims(self) -> dict:

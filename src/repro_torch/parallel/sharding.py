@@ -196,8 +196,6 @@ def distribute(full, mesh, pl) -> DTensor:
 # the layers that cannot run under a mesh yet
 _LAYERS_WAITING = {SSD: "SSD", RGLRU: "RG-LRU", CROSS_ATTN: "cross-attention",
                    ENC_ATTN: "encoder"}
-DECODE_WAITS = ("decode under a mesh (ROADMAP queue 1, item 5.3: the cache rules and "
-                "decode's call sites)")
 
 
 def check_mesh_support(cfg) -> None:
@@ -288,3 +286,60 @@ def shard_inputs(inputs: dict, specs: dict, mesh, parallel: ParallelConfig) -> d
         pl = resolve_placements(s.logical_axes, tuple(x.shape), rules, mesh)
         out[k] = x.redistribute(mesh, pl) if isinstance(x, DTensor) else distribute(x, mesh, pl)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the decode cache
+# ---------------------------------------------------------------------------
+
+def _map_cache(fn, cache, specs):
+    """``fn(tensor, spec)`` over the tensors of a cache layer's tree (None
+    for each tensor where ``cache`` is None)."""
+    if isinstance(specs, ParamSpec):
+        return fn(cache, specs)
+    return {k: _map_cache(fn, None if cache is None else cache[k], s)
+            for k, s in specs.items()}
+
+
+def shard_cache(model, cache, mesh, parallel: ParallelConfig) -> dict:
+    """A decode cache ({"pos", "layers"}, as ``Model.init_cache`` or
+    ``prefill`` made it) placed under ``activation_rules`` by the logical
+    axes of its specs (``attn_cache_specs``: batch, cache, kv_heads), as the
+    JAX decode step's in_shardings place it: a whole cache (the same on every
+    rank) cut rank by rank, a DTensor one redistributed (a no-op where it is
+    placed so already). ``pos`` stays a Python int, the same on every rank.
+    Under ``seq_shard_cache`` the cache's length takes the data axis, which
+    "cache" claims before "batch" (``_PRIORITY``), so its batch stays whole."""
+    check_mesh_support(model.cfg)
+    rules = activation_rules(parallel)
+
+    def place(x, spec):
+        pl = resolve_placements(spec.logical_axes, tuple(x.shape), rules, mesh)
+        return x.redistribute(mesh, pl) if isinstance(x, DTensor) else distribute(x, mesh, pl)
+
+    # the axes do not depend on the sizes
+    specs = model.cache_specs(1, 1)
+    return {"pos": cache["pos"],
+            "layers": [_map_cache(place, c, s) for c, s in zip(cache["layers"], specs)]}
+
+
+def init_cache(model, batch: int, cache_len: int, mesh, parallel: ParallelConfig) -> dict:
+    """An empty decode cache placed as ``shard_cache`` places one: each rank
+    makes the zeros of its own shard only (a copy of its own, as
+    ``local_shard``), never the whole cache."""
+    check_mesh_support(model.cfg)
+    rules = activation_rules(parallel)
+
+    def empty(spec):
+        pl = resolve_placements(spec.logical_axes, spec.shape, rules, mesh)
+        local = list(spec.shape)
+        for i, p in enumerate(pl):
+            if p.is_shard():
+                local[p.dim] //= mesh.size(i)
+        t = rank_map(lambda r: torch.zeros(local, dtype=spec.dtype, device=model.device))
+        stride = [math.prod(spec.shape[i + 1:]) for i in range(len(spec.shape))]
+        return DTensor.from_local(t, mesh, pl, run_check=False, shape=spec.shape,
+                                  stride=tuple(stride))
+
+    return {"pos": 0, "layers": [_map_cache(lambda _, s: empty(s), None, specs)
+                                 for specs in model.cache_specs(batch, cache_len)]}

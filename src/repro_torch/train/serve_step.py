@@ -5,11 +5,13 @@ step makers return plain closures where the JAX package returns functions
 to jit. Under a mesh (``mesh``, a ``DeviceMesh``, with ``parallel`` for
 the rules) the prefill and forward steps run on a model made sharded by
 ``parallel.sharding.shard_model`` and take DTensor inputs
-(``shard_inputs``); decode under a mesh is not ported yet.
+(``shard_inputs``), and decode runs on that model over a cache placed by
+the cache rules.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.models.model import Ctx, Model
@@ -50,15 +52,20 @@ def make_forward_step(model: Model, ctx: Ctx | None = None, *,
     return under_mesh(forward, model, mesh)
 
 
-def make_decode_step(model: Model, ctx: Ctx | None = None, *, mesh=None):
-    if mesh is not None:
-        raise NotImplementedError(sharding.DECODE_WAITS)
-    ctx = ctx or Ctx()
+def make_decode_step(model: Model, ctx: Ctx | None = None, *,
+                     parallel: ParallelConfig | None = None, mesh=None):
+    """One token against the cache: (token (B, 1), cache) -> (logits (B, V),
+    cache), the cache updated in place. Under a mesh the cache comes from
+    the sharded prefill, ``model.init_cache(..., mesh=...)`` or
+    ``sharding.shard_cache``; each layer's is placed by the cache rules at
+    the first step, and under ``seq_shard_cache`` its length stays split
+    over the data axis (flash-decoding, ``attention._sharded_decode``)."""
+    ctx = _ctx(ctx, parallel, mesh)
 
     def decode_step(token, cache):
         return model.decode_step(token, cache, ctx)
 
-    return decode_step
+    return under_mesh(decode_step, model, mesh)
 
 
 def sample_token(logits, temperature: float = 0.0, generator=None):
@@ -74,18 +81,26 @@ def sample_token(logits, temperature: float = 0.0, generator=None):
 
 def generate(model: Model, prompt, steps: int, cache_len: int = 0,
              temperature: float = 0.0, generator=None, ctx: Ctx | None = None,
-             memory=None):
+             memory=None, *, parallel: ParallelConfig | None = None, mesh=None):
     """Greedy/temperature generation: prompt (B,S) -> (B, steps) token ids.
     ``memory``: the stub frontend's embeddings, for an arch with
-    cross-attention (``model.memory_len() > 0``)."""
+    cross-attention (``model.memory_len() > 0``). Under a mesh (the model
+    sharded, the prompt from ``shard_inputs``) each step's logits are
+    gathered whole before sampling, and the ids come back whole."""
     cache_len = cache_len or (prompt.shape[1] + steps)
-    prefill = make_prefill_step(model, cache_len, ctx)
-    decode = make_decode_step(model, ctx)
+    prefill = make_prefill_step(model, cache_len, ctx, parallel=parallel, mesh=mesh)
+    decode = make_decode_step(model, ctx, parallel=parallel, mesh=mesh)
+
+    def sample(logits):
+        if isinstance(logits, DTensor):
+            logits = logits.full_tensor()
+        return sample_token(logits, temperature, generator)
+
     logits, cache = prefill(prompt, memory)
-    tok = sample_token(logits, temperature, generator)
+    tok = sample(logits)
     toks = [tok]
     for _ in range(steps - 1):
         logits, cache = decode(tok, cache)
-        tok = sample_token(logits, temperature, generator)
+        tok = sample(logits)
         toks.append(tok)
     return torch.cat(toks, dim=1)

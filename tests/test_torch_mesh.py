@@ -23,10 +23,10 @@ Held here:
     groups of 256 and 512 ranks, and its refusal at other world sizes;
   * ``fake_process_group`` leaves no default group behind;
   * the archs outside the slice raise NotImplementedError naming their
-    ROADMAP item under a mesh, for every step maker, the train step's
-    among them; decode under a mesh raises too; the train step builds for
-    the dense archs (tests/test_torch_mesh_train.py holds what it
-    computes); without a mesh every Ctx has no hook.
+    ROADMAP item under a mesh, for every step maker, the train and decode
+    steps' among them; the train and decode steps build for the dense archs
+    (tests/test_torch_mesh_train.py and tests/test_torch_mesh_decode*.py
+    hold what they compute); without a mesh every Ctx has no hook.
 
 Everything that stands up a process group, LocalTensorMode or JAX's fake
 devices runs in a subprocess: the default process group is global to a
@@ -339,6 +339,7 @@ def test_archs_outside_the_slice_raise_under_a_mesh(arch):
     model = Model(cfg, device="cpu")
     makers = (lambda: serve_step.make_forward_step(model, mesh=MESH_STANDIN),
               lambda: serve_step.make_prefill_step(model, 8, mesh=MESH_STANDIN),
+              lambda: serve_step.make_decode_step(model, mesh=MESH_STANDIN),
               lambda: train_step.make_eval_step(model, ParallelConfig(), MESH_STANDIN),
               lambda: train_step.make_train_step(model, OptConfig(), ParallelConfig(),
                                                  MESH_STANDIN))
@@ -354,18 +355,23 @@ def test_archs_outside_the_slice_raise_under_a_mesh(arch):
 
 
 def test_decode_and_train_steps_raise_under_a_mesh():
-    """Decode under a mesh waits; the train step builds under one for a
-    dense arch, and for an MoE arch raises, naming the item that waits."""
+    """The decode and train steps build under a mesh for a dense arch, and
+    for an MoE arch raise, naming the item that waits."""
     model = Model(get_config("qwen3-8b", smoke=True), device="cpu", trainable=True)
-    with pytest.raises(NotImplementedError, match=r"decode under a mesh .*item 5\.3"):
-        serve_step.make_decode_step(model, mesh=MESH_STANDIN)
+    assert callable(serve_step.make_decode_step(model, mesh=MESH_STANDIN))
+    assert callable(serve_step.make_decode_step(model, parallel=ParallelConfig(
+        seq_shard_cache=True), mesh=MESH_STANDIN))
     assert callable(train_step.make_train_step(model, OptConfig(), ParallelConfig(),
                                                MESH_STANDIN))
     moe = Model(get_config("mixtral-8x7b", smoke=True), device="cpu", trainable=True)
     with pytest.raises(NotImplementedError, match=r"MoE .*item 5\.3"):
+        serve_step.make_decode_step(moe, mesh=MESH_STANDIN)
+    with pytest.raises(NotImplementedError, match=r"MoE .*item 5\.3"):
         train_step.make_train_step(moe, OptConfig(), ParallelConfig(), MESH_STANDIN)
     with pytest.raises(ValueError, match="pass parallel, not ctx"):
         serve_step.make_forward_step(model, Ctx(), mesh=MESH_STANDIN)
+    with pytest.raises(ValueError, match="pass parallel, not ctx"):
+        serve_step.make_decode_step(model, Ctx(), mesh=MESH_STANDIN)
 
 
 def test_without_a_mesh_there_is_no_hook():
