@@ -200,7 +200,12 @@ a kernel's plain version:
              also at half the length: no kernel node, the FLOPs, bytes and
              collectives printed, and under seq_shard_cache every
              collective's count and bytes the same at both lengths (no
-             collective moves the cache)
+             collective moves the cache); and the forward step of
+             mixtral-8x7b and dbrx-132b on (16, 16) at full width, B 16,
+             at 1, 2 and 4 layers (MESH_MOE_CAPTURE): one K1 node a
+             layer, the FLOPs and every collective's count and bytes
+             exactly linear in depth, each collective kind a layer printed
+             beside qwen3-8b's dense layer's
   8. mesh    the serving path sharded over a DeviceMesh under the default
              ParallelConfig's rules (tp, fsdp, sequence parallel), every
              rank simulated on the card by LocalTensorMode
@@ -224,8 +229,15 @@ a kernel's plain version:
              no kernel launched in decode; and gemma3-4b's 6 layers in f32
              on (2, 4) under seq_shard_cache (B 1 x 2048, cache 8192: the
              cache and the rings split by length over data, decode as
-             flash-decoding over them); the seconds of each run and step.
-             Then the train step under a mesh (MESH_TRAIN):
+             flash-decoding over them); and the MoE archs at full width and
+             2 layers in bf16, B 4 x 2048, 2 decode steps, routed in 2
+             dispatch groups (one a data rank) as their unsharded twins
+             are: dbrx-132b on (2, 4) (expert parallel, 16 launches) and
+             mixtral-8x7b on (2, 16) (ff over the model axis, 64
+             launches), a free sharded prefill's routing flips printed,
+             the checked run's routing pinned to the twin's expert ids
+             (full-width gates lie within 1e-6 of a tie); the seconds of
+             each run and step. Then the train step under a mesh (MESH_TRAIN):
              gemma3-4b at full width as one superblock (6 layers) in f32 on
              (2, 4), B 4 x S 512, 3 steps of the default ParallelConfig
              (remat dots), each against an unsharded train step from the
@@ -2376,18 +2388,21 @@ def phase_grad_check(torch, arch):
 
 
 @contextlib.contextmanager
-def pinned_routing(routes0):
+def pinned_routing(routes0, local=None):
     """While active, the i-th ``moe.route`` call routes with routes0[i]'s
     expert ids, kept assignments and slots, and computes the gates and the
     renormalised top-k weights of those ids from its own router and input:
-    the loss on the branch routes0 was taken on. Yields the routings the
-    calls would have chosen left free."""
+    the loss on the branch routes0 was taken on. Under a mesh each rank
+    routes its own groups: `local` cuts a whole (G, ...) table to them.
+    Yields the routings the calls would have chosen left free."""
     from repro_torch.models import moe
     route, natural = moe.route, []
 
     def pinned(router, xt, cfg, cap):
         r = route(router, xt, cfg, cap)
         r0 = routes0[len(natural)]
+        if local is not None:
+            r0 = type(r0)(*(local(t) for t in r0))
         natural.append(r)
         top_w = r.gates.gather(-1, r0.top_i)
         top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -2545,7 +2560,22 @@ def phase_train(torch, card, arch, count_flops=False):
 # runs each operator once a rank, one rank after another (~0.7 s a layer and
 # a decode step on 8 ranks, ~17 s a layer on 256): the bf16 gemma3-4b run
 # was cut from 34 layers and qwen3-8b's 256 ranks from 2 when decode came in,
-# to keep chip_smoke.py within its time
+# to keep chip_smoke.py within its time.
+# The MoE archs at full width and 2 layers, B 4 x 2048 in bf16, decoding 2
+# steps: dbrx-132b on (2, 4), expert parallelism (4 of its 16 experts a model
+# rank), and mixtral-8x7b on (2, 16), whose 8 experts do not divide 16, so
+# that ff goes over the model axis; each routes in 2 dispatch groups (one a
+# data rank), and its unsharded twin in the same 2 (Ctx.moe_groups). Gates
+# at full width lie within 1e-6 of a tie (PERF.md, the MoE findings), so
+# the sharded run's summation order flips choices: it is held to the
+# unsharded run with its routing pinned to the unsharded run's expert ids
+# (pinned_routing, each rank its own groups); the choices a free sharded
+# prefill flips, and those the pinned run would have made free, are counted
+# and printed. Bytes: dbrx-132b's 2 layers are 7.75 B parameters (15.5 GB
+# of bf16: 6.5 GB a layer, 2.5 GB of embedding and unembedding), sharded in
+# place after the unsharded run; each rank gathers its experts' FSDP shards
+# one weight at a time (8 x 0.53 GB) and the expert outputs of its group
+# (8 x 0.25 GB)
 class MeshRun(NamedTuple):
     arch: str
     layers: int | None          # None: all
@@ -2565,6 +2595,8 @@ MESH_RUNS = (
     MeshRun(QWEN, 1, (16, 16), 16, PROMPT, "bfloat16", DECODE_RTOL, 2),
     MeshRun(QWEN, 2, (2, 16), BATCH, PROMPT, "float32", 1e-3, 4),
     MeshRun(ARCH, 6, (2, 4), 1, PROMPT, "float32", 1e-3, 4, cache=8192, seq_shard_cache=True),
+    MeshRun(DBRX, 2, (2, 4), BATCH, PROMPT, "bfloat16", DECODE_RTOL, 2),
+    MeshRun(MIXTRAL, 2, (2, 16), BATCH, PROMPT, "bfloat16", DECODE_RTOL, 2),
 )
 MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 # the decode cache is bf16 whatever the params (attention.CACHE_DTYPE): an f32
@@ -2583,24 +2615,66 @@ def mesh_config(get_config, arch, layers):
                        sb_repeat=layers // nsb, remainder=cfg.remainder[:layers % nsb])
 
 
-def phase_mesh(torch, card):
-    """MESH_RUNS: each config's prefill sharded over its mesh under the
+def rank_groups(mesh, groups):
+    """A function that cuts a whole (G, ...) routing table to each simulated
+    rank's dispatch groups: G / dp of them at the rank's index along the
+    data-parallel mesh dims (pod, data) in mesh order, as the groups follow
+    the batch rows over those dims (moe._to_groups)."""
+    from repro_torch.parallel.mesh import coordinate, rank_map
+    dims = [i for i, n in enumerate(mesh.mesh_dim_names) if n in ("pod", "data")]
+    n = groups // math.prod(mesh.size(i) for i in dims)
+
+    def index(r):
+        c, i = coordinate(mesh, r), 0
+        for d in dims:
+            i = i * mesh.size(d) + c[d]
+        return i
+
+    return lambda t: rank_map(lambda r: t[index(r) * n:(index(r) + 1) * n])
+
+
+def routing_flips(torch, mode, mesh, natural, routes0, local):
+    """[[tokens whose chosen experts differ, tokens whose order of them
+    differs], ...] for each MoE call of a sharded run (`natural`: its
+    routings, or a pinned run's choices left free) against the unsharded
+    run's, summed over the data-parallel ranks (the model ranks of a data
+    rank route alike)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    pl = [Partial() if n in ("pod", "data") else Replicate() for n in mesh.mesh_dim_names]
+    out = []
+    for r, r0 in zip(natural, routes0):
+        a, b = r.top_i, local(r0.top_i)
+        counts = torch.stack([(a.sort(-1).values != b.sort(-1).values).any(-1).sum(),
+                              (a != b).any(-1).sum()])
+        whole = DTensor.from_local(counts, mesh, pl, run_check=False).full_tensor()
+        with mode.disable():
+            out.append(whole.reconcile().tolist())
+    return out
+
+
+def phase_mesh(torch, card, runs=MESH_RUNS):
+    """`runs` (MESH_RUNS): each config's prefill sharded over its mesh under the
     rules of the default ParallelConfig (tp, fsdp, sequence parallel; and
     seq_shard_cache where the run says), every rank simulated on the card,
     against the unsharded prefill of the same seeded weights and tokens;
     then decode under the mesh from the sharded prefill's cache, each step
     against the unsharded decode from the unsharded cache, both fed the
-    unsharded run's greedy tokens. Launch counts are reset just before the
+    unsharded run's greedy tokens. An MoE arch's unsharded run routes in
+    the mesh's dispatch groups; a free sharded prefill prints the choices
+    its summation order flips, and the checked sharded run's routing is
+    pinned to the unsharded run's expert ids.
+    Launch counts are reset just before the
     sharded prefill and read just after: K1 launches ranks x layers times
     and no other kernel runs; reset again just before the decode steps and
     read just after: no kernel launches in decode. Returns {path: launches,
     ms and the decode's readings}."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.configs.registry import get_config
-    from repro_torch.models import Model, attention
+    from repro_torch.models import Ctx, Model, attention
     from repro_torch.parallel import sharding
     from repro_torch.parallel.mesh import make_mesh, simulated_ranks
     from repro_torch.train.serve_step import make_decode_step, make_prefill_step
+    from repro_torch.train.train_step import moe_groups
 
     import torch.distributed._local_tensor as local_tensor
     log(f"[mesh] torch {torch.__version__}: LocalTensorMode "
@@ -2615,7 +2689,7 @@ def phase_mesh(torch, card):
             fn.launches = 0
 
     out, t_decode_all, cache_dtype = {}, 0.0, attention.CACHE_DTYPE
-    for run in MESH_RUNS:
+    for run in runs:
         arch, layers, shape, batch, seq, dtype, rtol, steps, cache_len, seq_shard = run
         # an f32 run holds the mesh to f32 summation order alone, so its
         # decode cache is f32 too: in bf16 two sums some ulps apart can round
@@ -2628,19 +2702,30 @@ def phase_mesh(torch, card):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        model = Model(cfg, device="cuda", seed=SEED).to(getattr(torch, dtype))
+        model = Model(cfg, device="cuda", seed=SEED)
+        if dtype != "bfloat16":
+            # the bf16 model keeps the params that its specs make f32 (the
+            # MoE router) in f32
+            model = model.to(getattr(torch, dtype))
         gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
         tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device="cuda")
-        ref, ref_cache = make_prefill_step(model, cache_len)(tokens)
-        ref_k = (ref_cache["layers"][0]["attn"]["k"].clone() if world <= CACHE_CHECK_RANKS
-                 else None)
-        # the unsharded decode, greedy: its tokens feed both runs
-        decode = make_decode_step(model)
-        feed, ref_steps = [ref.argmax(dim=-1, keepdim=True)], []
-        for _ in range(steps):
-            logits, ref_cache = decode(feed[-1], ref_cache)
-            ref_steps.append(logits)
-            feed.append(logits.argmax(dim=-1, keepdim=True))
+        # the unsharded twin routes in the mesh's dispatch groups; an MoE
+        # arch's routings are recorded, to pin the sharded run's to
+        groups = moe_groups(par, dict(zip(MESH_AXES[len(shape)], shape)))
+        ref_ctx = Ctx(moe_groups=groups)
+        moe_run = bool(cfg.num_experts)
+        with (recorded_layers(resid=False) if moe_run
+              else contextlib.nullcontext(([], []))) as (routes0, _):
+            ref, ref_cache = make_prefill_step(model, cache_len, ref_ctx)(tokens)
+            ref_k = (ref_cache["layers"][0]["attn"]["k"].clone()
+                     if world <= CACHE_CHECK_RANKS else None)
+            # the unsharded decode, greedy: its tokens feed both runs
+            decode = make_decode_step(model, ref_ctx)
+            feed, ref_steps = [ref.argmax(dim=-1, keepdim=True)], []
+            for _ in range(steps):
+                logits, ref_cache = decode(feed[-1], ref_cache)
+                ref_steps.append(logits)
+                feed.append(logits.argmax(dim=-1, keepdim=True))
         del ref_cache, decode
         torch.cuda.synchronize()
         t_ref = time.perf_counter() - t0
@@ -2652,36 +2737,56 @@ def phase_mesh(torch, card):
                                            sharding.batch_specs(model, "prefill", batch, seq),
                                            mesh, par)
             prefill = make_prefill_step(model, cache_len, parallel=par, mesh=mesh)
+            local = rank_groups(mesh, groups)
+            pin = (pinned_routing(routes0, local) if moe_run
+                   else contextlib.nullcontext([]))
             torch.cuda.synchronize()
             t_shard = time.perf_counter() - t0
-            reset()
-            t0 = time.perf_counter()
-            logits, cache = prefill(inputs["tokens"])
-            torch.cuda.synchronize()
-            t_prefill = time.perf_counter() - t0
-            prefill_launches = launches()
-            got = logits.full_tensor()
-            got_k = cache["layers"][0]["attn"]["k"].full_tensor() if ref_k is not None else None
-            del logits, inputs, prefill
-            decode = make_decode_step(model, parallel=par, mesh=mesh)
-            tok_specs = sharding.batch_specs(model, "decode", batch, 1)
-            dec, t_steps = [], []
-            reset()
-            for i in range(steps):
-                tok = sharding.shard_inputs({"token": feed[i]}, tok_specs, mesh, par)["token"]
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                logits, cache = decode(tok, cache)
-                torch.cuda.synchronize()
-                t_steps.append(time.perf_counter() - t0)
+            free = None
+            if moe_run:
+                # a free (unpinned) sharded prefill first: the choices its
+                # summation order flips against the unsharded run's, and how
+                # far its logits then lie (printed, not held)
+                with recorded_layers(resid=False) as (free_routes, _):
+                    logits, _ = prefill(inputs["tokens"])
                 whole = logits.full_tensor()
+                free = [routing_flips(torch, mode, mesh, free_routes, routes0, local)]
                 with mode.disable():
-                    # every rank holds the same whole logits: reconcile checks it
-                    dec.append(whole.reconcile())
-                del logits, whole
-            decode_launches = launches()
+                    free.append((whole.reconcile().float() - ref.float()).abs().max().item())
+                del logits, whole, free_routes
+            with pin as natural:
+                reset()
+                t0 = time.perf_counter()
+                logits, cache = prefill(inputs["tokens"])
+                torch.cuda.synchronize()
+                t_prefill = time.perf_counter() - t0
+                prefill_launches = launches()
+                got = logits.full_tensor()
+                got_k = (cache["layers"][0]["attn"]["k"].full_tensor() if ref_k is not None
+                         else None)
+                del logits, inputs, prefill
+                decode = make_decode_step(model, parallel=par, mesh=mesh)
+                tok_specs = sharding.batch_specs(model, "decode", batch, 1)
+                dec, t_steps = [], []
+                reset()
+                for i in range(steps):
+                    tok = sharding.shard_inputs({"token": feed[i]}, tok_specs, mesh,
+                                                par)["token"]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, cache = decode(tok, cache)
+                    torch.cuda.synchronize()
+                    t_steps.append(time.perf_counter() - t0)
+                    whole = logits.full_tensor()
+                    with mode.disable():
+                        # every rank holds the same whole logits: reconcile checks it
+                        dec.append(whole.reconcile())
+                    del logits, whole
+                decode_launches = launches()
+            flips = (routing_flips(torch, mode, mesh, natural, routes0, local) if moe_run
+                     else [])
             placed = str(cache["layers"][0]["attn"]["k"].placements)
-            del cache, decode
+            del cache, decode, natural, routes0
         got = got.reconcile()
         err = (got.float() - ref.float()).abs().max().item()
         top = ref.float().abs().max().item()
@@ -2695,6 +2800,15 @@ def phase_mesh(torch, card):
                 + (" seq_shard_cache" if seq_shard else ""))
         want = {name: world * cfg.num_layers if name == "flash_attention" else 0
                 for name in counters}
+        if moe_run:
+            n_pre = cfg.num_layers
+            log(f"[mesh] {path}: {groups} dispatch groups. A free sharded prefill chose "
+                f"other experts (another order of them) than the unsharded run for these "
+                f"tokens of {batch * seq} a layer: {free[0]}; max |logit - unsharded| "
+                f"{free[1]:.3e} (printed, not held). The checked run is pinned to the "
+                f"unsharded run's expert ids; left free at each call it would have chosen "
+                f"otherwise for these tokens: prefill {flips[:n_pre]}, of {batch} a decode "
+                f"step {flips[n_pre:]}")
         log(f"[mesh] {path}: {world} ranks, B {batch} x S {seq}, cache {cache_len}: unsharded "
             f"prefill and {steps} decode steps {t_ref:.1f} s (init included), sharding "
             f"{t_shard:.1f} s, sharded prefill {t_prefill * 1e3:.1f} ms; launches "
@@ -2733,13 +2847,14 @@ def phase_mesh(torch, card):
         out[path] = {"launches": prefill_launches, "prefill_ms": t_prefill * 1e3, "ranks": world,
                      "layers": cfg.num_layers, "err": err, "max_logit": top,
                      "config": cfg.name, "mesh": list(shape), "dtype": dtype,
-                     "seq_shard_cache": seq_shard,
+                     "seq_shard_cache": seq_shard, "moe_groups": groups,
+                     "routing_flips": flips, "free_prefill": free,
                      "decode": {"launches": decode_launches, "steps": steps_out,
                                 "placed": placed}}
         del model, ref, ref_k, got, got_k, dec, ref_steps, feed
     attention.CACHE_DTYPE = cache_dtype
     log(f"[mesh] decode under the mesh: {t_decode_all:.1f} s of steps over "
-        f"{len(MESH_RUNS)} runs")
+        f"{len(runs)} runs")
     torch.cuda.empty_cache()
     return out
 
@@ -3020,6 +3135,14 @@ MESH_DECODE_CAPTURES = (((16, 16), 128, 32_768, False), ((16, 16), 1, 524_288, T
 # depths: its FLOPs and every collective's count and bytes held exactly
 # linear in depth (the first two fix the line, the third is on it)
 MESH_TRAIN_CAPTURE = (QWEN, (16, 16), 16, (1, 2, 4))
+# rank 0's program of the MoE archs' forward step on the production mesh
+# (16, 16) at full width, one sequence of PROMPT a data rank (16 dispatch
+# groups): dbrx-132b's 16 experts one a model rank (expert parallelism),
+# mixtral-8x7b's 8 with ff over the model axis. At these depths its FLOPs and
+# every collective's count and bytes are held exactly linear in depth; each
+# collective kind's count and bytes a layer are printed beside those of
+# qwen3-8b's dense layer, captured at the first two depths
+MESH_MOE_CAPTURE = ((MIXTRAL, DBRX), QWEN, (16, 16), 16, (1, 2, 4))
 
 
 def count_flops_of(torch, fn):
@@ -3202,6 +3325,11 @@ def capture_jobs(get_config):
     arch, mesh, batch, depths = MESH_TRAIN_CAPTURE
     jobs += [(mesh_config(get_config, arch, L), mesh_what("train", mesh, batch))
              for L in depths]
+    archs, dense, mesh, batch, depths = MESH_MOE_CAPTURE
+    jobs += [(mesh_config(get_config, arch, L), mesh_what("forward", mesh, batch))
+             for arch in archs for L in depths]
+    jobs += [(mesh_config(get_config, dense, L), mesh_what("forward", mesh, batch))
+             for L in depths[:2]]
     return jobs
 
 
@@ -3253,19 +3381,73 @@ def check_train_capture(by_key, mesh_train):
             fail(f"capture {arch} train at {L} layers mesh {shape}: world {c['world']}, kernel "
                  f"nodes {c['kernel_launch_nodes']}, want {want} (phase 8's launches a rank "
                  f"and a layer)")
-    (d1, c1), (d2, c2), (dn, cn) = zip(depths, caps_t)
+    k, n_lines = linear_in_depth(caps_t, depths, f"{arch} train on mesh {shape}")
+    d1, d2, dn = depths
+    log(f"[capture] rank 0 of {arch} train on mesh {shape}: FLOPs and every collective's count "
+        f"and bytes at {dn} layers = x({d1}) + {k} x (x({d2}) - x({d1})), exactly "
+        f"({n_lines} lines); K1 nodes a layer {per_layer} = phase 8's launches a rank and "
+        f"a layer")
+
+
+def linear_in_depth(caps, depths, what):
+    """Fail unless the FLOPs and every collective kind's count and bytes of
+    the captures at three depths lie exactly on the line through the first
+    two. Returns (the third depth's step in units of the first two's gap,
+    the number of lines held)."""
+    (d1, c1), (d2, c2), (dn, cn) = zip(depths, caps)
     k = (dn - d1) // (d2 - d1)
     lines = {"FLOPs": [c["parsed_flops"] for c in (c1, c2, cn)]}
     for kind in sorted(set(c1["comm"]) | set(c2["comm"]) | set(cn["comm"])):
-        for what in ("count", "bytes"):
-            lines[f"{kind} {what}"] = [c["comm"].get(kind, {}).get(what, 0) for c in (c1, c2, cn)]
+        for n in ("count", "bytes"):
+            lines[f"{kind} {n}"] = [c["comm"].get(kind, {}).get(n, 0) for c in (c1, c2, cn)]
     off = {name: v for name, v in lines.items() if v[2] != v[0] + k * (v[1] - v[0])}
     if off:
-        fail(f"capture {arch} train on mesh {shape}: not linear in depth {depths}: {off}")
-    log(f"[capture] rank 0 of {arch} train on mesh {shape}: FLOPs and every collective's count "
-        f"and bytes at {dn} layers = x({d1}) + {k} x (x({d2}) - x({d1})), exactly "
-        f"({len(lines)} lines); K1 nodes a layer {per_layer} = phase 8's launches a rank and "
-        f"a layer")
+        fail(f"capture {what}: not linear in depth {depths}: {off}")
+    return k, len(lines)
+
+
+def per_layer_comm(c1, c2):
+    """{collective kind: "count (MB)"} of one layer: the capture at one more
+    layer less the other."""
+    kinds = sorted(set(c1["comm"]) | set(c2["comm"]))
+    out = {}
+    for kind in kinds:
+        n, b = (c2["comm"].get(kind, {}).get(x, 0) - c1["comm"].get(kind, {}).get(x, 0)
+                for x in ("count", "bytes"))
+        if n or b:
+            out[kind] = f"{n} ({b / 1e6:.3f} MB)"
+    return out
+
+
+def check_moe_captures(by_key):
+    """Gate (vii) of phase_capture: rank 0's program of the MoE archs'
+    forward step on (16, 16) (MESH_MOE_CAPTURE) has one K1 node a layer, and
+    its FLOPs and every collective's count and bytes are exactly linear in
+    depth; each collective kind a layer is printed beside those of qwen3-8b's
+    dense layer."""
+    archs, dense, shape, batch, depths = MESH_MOE_CAPTURE
+    what = mesh_what("forward", shape, batch)
+    d1, d2, dn = depths
+    dense_layer = per_layer_comm(*(by_key[(f"{dense}-{L}layer", what)] for L in depths[:2]))
+    for arch in archs:
+        caps = [by_key[(f"{arch}-{L}layer", what)] for L in depths]
+        for c, L in zip(caps, depths):
+            comm = {k: f"{v['count']} ({v['bytes'] / 1e6:.3f} MB)"
+                    for k, v in sorted(c["comm"].items())}
+            log(f"[capture] rank 0 of {arch} forward at {L} layers on mesh {shape} "
+                f"({c['world']} ranks, B {batch} x S {PROMPT}): {c['parsed_flops']:.6e} FLOPs "
+                f"a rank, COMM_COLL {comm}, {c['comm_bytes'] / 1e6:.3f} MB in all; kernel "
+                f"nodes {c['kernel_nodes']}; {c['seconds']:.1f} s")
+            want = {name: L if name == "flash_attention" else 0
+                    for name in c["kernel_launch_nodes"]}
+            if c["world"] != math.prod(shape) or c["kernel_launch_nodes"] != want:
+                fail(f"capture {arch} forward at {L} layers mesh {shape}: world {c['world']}, "
+                     f"kernel nodes {c['kernel_launch_nodes']}, want {want}")
+        k, n_lines = linear_in_depth(caps, depths, f"{arch} forward on mesh {shape}")
+        log(f"[capture] rank 0 of {arch} forward on mesh {shape}: FLOPs and every "
+            f"collective's count and bytes at {dn} layers = x({d1}) + {k} x (x({d2}) - "
+            f"x({d1})), exactly ({n_lines} lines); a layer: {per_layer_comm(*caps[:2])}, "
+            f"against {dense}'s dense layer {dense_layer}")
 
 
 def phase_capture(torch, card, proc, measured, real_flops, mesh_measured, mesh_train):
@@ -3288,7 +3470,9 @@ def phase_capture(torch, card, proc, measured, real_flops, mesh_measured, mesh_t
     its FLOPs and each collective's count and bytes are exactly linear in
     depth; (vi) rank 0's program of qwen3-8b's decode step on (16, 16)
     (MESH_DECODE_CAPTURES) has no kernel node, and under seq_shard_cache
-    its collectives are the same at both cache lengths. Returns the
+    its collectives are the same at both cache lengths; (vii) rank 0's
+    program of the MoE archs' forward step on (16, 16) (MESH_MOE_CAPTURE)
+    has one K1 node a layer and is exactly linear in depth. Returns the
     captures."""
     if proc.wait(timeout=900) != 0:
         with open(CAPTURE_OUT + ".log") as f:
@@ -3369,6 +3553,7 @@ def phase_capture(torch, card, proc, measured, real_flops, mesh_measured, mesh_t
                 f"the simulated run's launches ({want})")
     check_train_capture(by_key, mesh_train)
     check_decode_captures(by_key)
+    check_moe_captures(by_key)
     return caps
 
 

@@ -74,11 +74,13 @@ class Ctx:
     and the sharding hook. ``shard_fn(x, axes)`` is None without a mesh;
     under one it is ``parallel.sharding.make_shard_fn``'s, which
     redistributes an activation to what its logical axes resolve to (the
-    counterpart of ``with_sharding_constraint``). The port has one
-    implementation of each mixer, so it has no ``attn_impl``, and no
-    ``moe_groups`` yet (MoE routes a call's tokens as one group)."""
+    counterpart of ``with_sharding_constraint``). ``moe_groups``: the MoE
+    layers' dispatch groups, each routed with its own capacity (the
+    data-parallel degree under a mesh, ``train_step.make_ctx``). The port
+    has one implementation of each mixer, so it has no ``attn_impl``."""
     remat: str = "none"
     shard_fn: Callable | None = None
+    moe_groups: int = 1
 
     def shard(self, x, *axes):
         if self.shard_fn is None:
@@ -116,7 +118,7 @@ def _feed_forward(p, h, cfg, ctx):
     the MoE aux loss, or 0.0 where the layer has no experts."""
     m_in = rms_norm(h, p["ln2"]["scale"], cfg.norm_eps)
     if "moe" in p:
-        m, aux = moe.moe_apply(p["moe"], m_in, cfg)
+        m, aux = moe.moe_apply(p["moe"], m_in, cfg, ctx)
         return h + m, aux
     return h + mlp_apply(p["mlp"], m_in, cfg.act, ctx), 0.0
 

@@ -1,26 +1,43 @@
 """Mixture-of-Experts with top-k routing (counterpart of ``repro/models/moe.py``):
-gather-based, capacity-bounded.
+grouped, gather-based, capacity-bounded.
 
-The T tokens of a call are routed as one group (the JAX package splits them
-into one group per data-parallel shard; the port has no mesh), with
-capacity C = capacity(T, E, k, cf) slots an expert. The router runs in
+The T tokens of a call are split into G = ``ctx.moe_groups`` groups (the
+data-parallel degree under a mesh, 1 without one; 1 also where G does not
+divide T), and each group routes its Tg = T/G tokens on its own, with
+capacity C = capacity(Tg, E, k, cf) slots an expert. The router runs in
 f32; the top-k weights are renormalised; each assignment's position in its
-expert counts the assignments before it in (token, k) order, so earlier
-tokens win a full expert and the rest are dropped. Dispatch gathers tokens
-into (G, E, C, D) slots, the expert products are einsums batched over the
-experts, and combine is a gather: each (token, k) reads its slot's output.
+expert counts the assignments of its group before it in (token, k) order,
+so earlier tokens win a full expert and the rest are dropped. Dispatch
+gathers tokens into (G, E, C, D) slots, the expert products are einsums
+batched over the experts, and combine is a gather: each (token, k) reads
+its slot's output.
+
+Under a mesh (x a DTensor) the four constraints of the reference's call
+sites place xt (groups, -, embed), the dispatch tensor (groups, experts, -,
+embed), the gated hidden (groups, experts, -, ff) and the expert outputs
+(groups, experts, -, embed). Each rank routes, dispatches and combines the
+groups it holds on local tensors; the expert products run on local shards
+(``layers.local_product``): under expert parallelism (E divides the model
+axis) a rank holds E/m whole experts, and the combine gathers every
+expert's outputs of its groups over the model axis (an all-gather, where
+GSPMD moves them with an all-to-all); where E does not divide it, every
+rank holds all experts with ff split, and the down product's partial sums
+are all-reduced at the output's constraint.
 
 ``route`` computes the routing; ``moe_apply`` looks it up in this module at
 each call, so a caller can observe the routing by wrapping ``moe.route``.
+Under a mesh it is called on each rank's local groups.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.models.layers import ParamSpec
+from repro_torch.models.layers import ParamSpec, local_product
 
 
 def moe_specs(cfg):
@@ -39,8 +56,8 @@ def capacity(tokens: int, num_experts: int, k: int, cf: float) -> int:
 
 
 class Routing(NamedTuple):
-    """The routing of G groups of Tg tokens to E experts, k each (G is 1 in
-    ``moe_apply``; the leading dimension keeps the JAX package's layout)."""
+    """The routing of G groups of Tg tokens to E experts, k each (under a
+    mesh, of a rank's local groups)."""
     gates: torch.Tensor      # (G,Tg,E) f32 softmax of the router logits
     top_w: torch.Tensor      # (G,Tg,k) f32 weights of the chosen experts, renormalised
     top_i: torch.Tensor      # (G,Tg,k) int64 expert ids, by gate descending
@@ -67,39 +84,140 @@ def route(router, xt, cfg, cap: int) -> Routing:
     return Routing(gates, top_w, top_i, pos < cap, flat_e * cap + pos)
 
 
-def moe_apply(p, x, cfg):
-    """x (B,S,D) -> (out (B,S,D), aux_loss f32 scalar)."""
+def moe_apply(p, x, cfg, ctx=None):
+    """x (B,S,D) -> (out (B,S,D), aux_loss f32 scalar), in ``ctx.moe_groups``
+    dispatch groups (one without a ctx); under a mesh x is a DTensor
+    (``_sharded_moe``)."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
-    G, Tg = 1, B * S
+    T = B * S
+    G = max(ctx.moe_groups, 1) if ctx is not None else 1
+    G = G if T % G == 0 else 1
+    Tg = T // G
     C = capacity(Tg, E, K, cfg.capacity_factor)
+    if isinstance(x, DTensor):
+        return _sharded_moe(p, x, cfg, ctx, G, C)
     xt = x.reshape(G, Tg, D)
     r = route(p["router"], xt, cfg, C)
+    aux = _aux_loss(*_means(r, E), E)
+    y = _experts(p, _dispatch(xt, r, E, C), cfg)
+    return _combine(y, r).reshape(B, S, D), aux
 
-    # load-balancing aux loss (Switch-style): first choices' density, no
-    # gradient, against the mean gate
-    density = F.one_hot(r.top_i[..., 0], E).float().mean(dim=(0, 1))
-    aux = E * (density * r.gates.mean(dim=(0, 1))).sum()
 
-    # slot -> token tables; a dropped assignment writes the spare slot E*C,
-    # which is then cut off
-    tok_of = (torch.arange(Tg * K, device=x.device) // K).expand(G, -1)
+def _means(r, E):
+    """The mean gate and the first choices' density (no gradient) over the
+    tokens of a routing: (E,) each."""
+    return r.gates.mean(dim=(0, 1)), F.one_hot(r.top_i[..., 0], E).float().mean(dim=(0, 1))
+
+
+def _aux_loss(mean_gates, density, E):
+    """Load-balancing aux loss (Switch-style): the first choices' density
+    against the mean gate, both means over every token."""
+    return E * (density * mean_gates).sum()
+
+
+def _dispatch(xt, r, E, C):
+    """xt (G,Tg,D) -> (G,E,C,D): each slot's token, zero where no kept
+    assignment fills it. The slot -> token tables are built per group; a
+    dropped assignment writes the spare slot E*C, which is then cut off."""
+    G, Tg, D = xt.shape
+    K = r.top_i.shape[-1]
+    tok_of = (torch.arange(Tg * K, device=xt.device) // K).expand(G, -1)
     slot_safe = torch.where(r.keep, r.slot, E * C)
-    idx = torch.zeros((G, E * C + 1), dtype=torch.int64, device=x.device)
+    idx = torch.zeros((G, E * C + 1), dtype=torch.int64, device=xt.device)
     idx = idx.scatter_(1, slot_safe, tok_of)[:, :-1]
-    valid = torch.zeros((G, E * C + 1), dtype=torch.bool, device=x.device)
+    valid = torch.zeros((G, E * C + 1), dtype=torch.bool, device=xt.device)
     valid = valid.scatter_(1, slot_safe, r.keep)[:, :-1]
-
     xg = xt.gather(1, idx[..., None].expand(-1, -1, D)).reshape(G, E, C, D)
-    xg = xg * valid.reshape(G, E, C, 1).to(xg.dtype)
-    h = torch.einsum("gecd,edf->gecf", xg, p["wi"])
-    g = torch.einsum("gecd,edf->gecf", xg, p["wg"])
-    g = F.silu(g) if cfg.act == "silu" else F.gelu(g, approximate="tanh")
-    y = torch.einsum("gecf,efd->gecd", h * g, p["wo"])     # (G,E,C,D)
+    return xg * valid.reshape(G, E, C, 1).to(xg.dtype)
 
-    # combine: each (token, k) reads its slot's output (gather, no scatter)
+
+def _act(g, cfg):
+    return F.silu(g) if cfg.act == "silu" else F.gelu(g, approximate="tanh")
+
+
+def _experts(p, xg, cfg):
+    """The gated expert MLPs of the dispatched tokens: (G,E,C,D) -> (G,E,C,D)."""
+    h = torch.einsum("gecd,edf->gecf", xg, p["wi"])
+    g = _act(torch.einsum("gecd,edf->gecf", xg, p["wg"]), cfg)
+    return torch.einsum("gecf,efd->gecd", h * g, p["wo"])
+
+
+def _combine(y, r):
+    """Each (token, k) reads its slot's output of y (G,E,C,D) (a gather, no
+    scatter), weighted and summed over k: (G,Tg,D)."""
+    G, E, C, D = y.shape
+    Tg, K = r.top_w.shape[1:]
     read = torch.where(r.keep, r.slot, 0)
     yt = y.reshape(G, E * C, D).gather(1, read[..., None].expand(-1, -1, D))
     yt = yt * r.keep[..., None].to(yt.dtype)
-    out = (yt.reshape(G, Tg, K, D) * r.top_w.reshape(G, Tg, K, 1).to(yt.dtype)).sum(dim=2)
-    return out.reshape(B, S, D), aux
+    return (yt.reshape(G, Tg, K, D) * r.top_w.reshape(G, Tg, K, 1).to(yt.dtype)).sum(dim=2)
+
+
+# ---------------------------------------------------------------------------
+# under a mesh
+# ---------------------------------------------------------------------------
+
+def _sharded_moe(p, x, cfg, ctx, G, C):
+    """``moe_apply`` of x (B,S,D), a DTensor, and the sharded weights: the
+    routing, dispatch and combine of each rank's groups on its local
+    tensors, the expert products on local shards. Returns (out, a DTensor
+    placed as the groups' tokens, back in (B,S,D); aux, a replicated f32
+    DTensor scalar)."""
+    B, S, D = x.shape
+    E = cfg.num_experts
+    mesh = x.device_mesh
+    xt = ctx.shard(_to_groups(x, G), "groups", None, "embed_nos")
+    gpl = xt.placements                  # Shard(0) where a mesh dim splits the groups
+    router = ctx.shard(p["router"], None, None).to_local()
+    r = route(router, xt.to_local(), cfg, C)
+    # the means over every group: each rank's over its groups, summed over
+    # the mesh dims that split them
+    n, partial = _split(mesh, gpl), [Partial() if q == Shard(0) else q for q in gpl]
+    aux = _aux_loss(*(DTensor.from_local(m / n, mesh, partial, run_check=False)
+                      .redistribute(mesh, [Replicate()] * mesh.ndim) for m in _means(r, E)), E)
+
+    xg = DTensor.from_local(_dispatch(xt.to_local(), r, E, C), mesh, gpl, run_check=False)
+    # the expert-parallel transition: (groups, experts) over (data, model)
+    xg = ctx.shard(xg, "groups", "experts", None, "embed_nos")
+    x_axes = ("groups", "experts", None, "embed_nos")
+    h, g = (local_product("gecd,edf->gecf", xg, p[w], ctx, x_axes, ("experts", None, "ff"))
+            for w in ("wi", "wg"))
+    h = ctx.shard(h * _act(g, cfg), "groups", "experts", None, "ff")
+    y = local_product("gecf,efd->gecd", h, p["wo"], ctx, ("groups", "experts", None, "ff"),
+                      ("experts", "ff", None))
+    y = ctx.shard(y, "groups", "experts", None, "embed_nos")
+    # combine on the rank's groups, every expert's outputs of them gathered
+    out = _combine(y.redistribute(mesh, gpl).to_local(), r)
+    return _from_groups(DTensor.from_local(out, mesh, gpl, run_check=False), B, S), aux
+
+
+def _split(mesh, pl) -> int:
+    """How many shards the mesh dims placed Shard(0) in ``pl`` cut dim 0 into."""
+    return math.prod(mesh.size(i) for i, q in enumerate(pl) if q == Shard(0))
+
+
+def _to_groups(x, G):
+    """x (B,S,D), a DTensor -> (G, T/G, D), a DTensor whose local shard is
+    its rank's rows' tokens in order: split over the mesh dims that split
+    x's batch where those hold whole groups (the groups follow the batch
+    rows, so nothing moves but the sequence, gathered), else whole."""
+    mesh = x.device_mesh
+    pl = [q if q == Shard(0) else Replicate() for q in x.placements]
+    if G % _split(mesh, pl):
+        pl = [Replicate()] * mesh.ndim
+    local = x.redistribute(mesh, pl).to_local()
+    return DTensor.from_local(local.reshape(G // _split(mesh, pl), -1, x.shape[2]), mesh, pl,
+                              run_check=False)
+
+
+def _from_groups(out, B, S):
+    """``_to_groups``'s inverse: (G, Tg, D) placed Shard(0) or Replicate ->
+    (B, S, D), split over the same mesh dims where B allows it, else whole."""
+    mesh = out.device_mesh
+    pl = list(out.placements)
+    if B % _split(mesh, pl):
+        pl = [Replicate()] * mesh.ndim
+    local = out.redistribute(mesh, pl).to_local()
+    return DTensor.from_local(local.reshape(B // _split(mesh, pl), S, out.shape[2]), mesh, pl,
+                              run_check=False)

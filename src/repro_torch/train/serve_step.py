@@ -16,7 +16,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.models.model import Ctx, Model
 from repro_torch.parallel import sharding
-from repro_torch.train.train_step import under_mesh
+from repro_torch.train.train_step import moe_groups, under_mesh
 
 
 def _ctx(ctx, parallel, mesh):
@@ -25,7 +25,9 @@ def _ctx(ctx, parallel, mesh):
     if ctx is not None:
         raise ValueError("under a mesh the step makes its own Ctx: pass parallel, not ctx")
     # serving keeps no activations for a backward, so nothing is rematted
-    return Ctx(shard_fn=sharding.make_shard_fn(mesh, parallel or ParallelConfig()))
+    parallel = parallel or ParallelConfig()
+    return Ctx(shard_fn=sharding.make_shard_fn(mesh, parallel),
+               moe_groups=moe_groups(parallel, mesh))
 
 
 def make_prefill_step(model: Model, cache_len: int, ctx: Ctx | None = None, *,

@@ -29,6 +29,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.models.model import Ctx, Model
 from repro_torch.parallel import sharding
+from repro_torch.parallel.mesh import dp_size, model_size
 from repro_torch.train.optimizer import (OptConfig, OptState, adamw_update,
                                          init_opt_state)
 
@@ -40,21 +41,31 @@ class TrainState(NamedTuple):
 
 
 def make_ctx(parallel: ParallelConfig, mesh=None) -> Ctx:
-    # the JAX package also sets moe_groups here, the data-parallel degree
-    # (times the model axis under zero3); MoE under a mesh waits (ROADMAP
-    # queue 1, item 5.3), and without one MoE routes a call's tokens as one group
-    return Ctx(remat=parallel.remat, shard_fn=sharding.make_shard_fn(mesh, parallel))
+    return Ctx(remat=parallel.remat, shard_fn=sharding.make_shard_fn(mesh, parallel),
+               moe_groups=moe_groups(parallel, mesh))
 
 
-def under_mesh(fn, model: Model, mesh):
+def moe_groups(parallel: ParallelConfig, mesh=None) -> int:
+    """The MoE dispatch groups of a step, as the JAX ``make_ctx`` sets them:
+    one a data-parallel rank, times the model axis under zero3 (where it is
+    data-parallel too); 1 without a mesh."""
+    if mesh is None:
+        return 1
+    groups = dp_size(mesh)
+    if parallel.model_axis == "zero3":
+        groups *= model_size(mesh)
+    return groups
+
+
+def under_mesh(fn, model: Model, mesh, train: bool = False):
     """``fn`` as it runs with a model sharded over ``mesh``: the arch
-    checked (``check_mesh_support``), and the call inside
-    ``implicit_replication``, where a plain tensor that meets a DTensor
-    counts as replicated. ``fn`` itself without a mesh."""
+    checked for the step's kind (``check_mesh_support``), and the call
+    inside ``implicit_replication``, where a plain tensor that meets a
+    DTensor counts as replicated. ``fn`` itself without a mesh."""
     if mesh is None:
         return fn
     from torch.distributed.tensor.experimental import implicit_replication
-    sharding.check_mesh_support(model.cfg)
+    sharding.check_mesh_support(model.cfg, train)
 
     @functools.wraps(fn)
     def step(*args, **kwargs):
@@ -144,7 +155,7 @@ def make_train_step(model: Model, opt_cfg: OptConfig, parallel: ParallelConfig,
         metrics["loss"] = loss
         return TrainState(params, new_opt, state.err), metrics
 
-    return under_mesh(train_step, model, mesh)
+    return under_mesh(train_step, model, mesh, train=True)
 
 
 def make_eval_step(model: Model, parallel: ParallelConfig, mesh=None):

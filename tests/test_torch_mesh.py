@@ -24,7 +24,9 @@ Held here:
   * ``fake_process_group`` leaves no default group behind;
   * the archs outside the slice raise NotImplementedError naming their
     ROADMAP item under a mesh, for every step maker, the train and decode
-    steps' among them; the train and decode steps build for the dense archs
+    steps' among them, and the MoE archs for the train step alone (they
+    serve under a mesh: tests/test_torch_mesh_moe*.py); the train and decode
+    steps build for the dense archs
     (tests/test_torch_mesh_train.py and tests/test_torch_mesh_decode*.py
     hold what they compute); without a mesh every Ctx has no hook.
 
@@ -326,11 +328,13 @@ def test_axis_sizes_take_a_mapping_or_none():
 # what waits for later slices, and the path without a mesh
 # ---------------------------------------------------------------------------
 
-# a mesh stand-in: every refusal below comes before the mesh is used
-MESH_STANDIN = object()
-WAITING = {"mamba2-780m": "SSD", "recurrentgemma-9b": "RG-LRU", "mixtral-8x7b": "MoE",
-           "dbrx-132b": "MoE", "llama-3.2-vision-90b": "cross",
+# a mesh stand-in: the axis sizes a step maker reads (the MoE dispatch
+# groups of its Ctx); every refusal below comes before the mesh is used
+MESH_STANDIN = {"data": 2, "model": 4}
+WAITING = {"mamba2-780m": "SSD", "recurrentgemma-9b": "RG-LRU", "llama-3.2-vision-90b": "cross",
            "seamless-m4t-medium": "encoder"}
+# the MoE archs serve under a mesh; their train step waits
+TRAIN_WAITING = {"mixtral-8x7b": "MoE", "dbrx-132b": "MoE"}
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
@@ -343,8 +347,8 @@ def test_archs_outside_the_slice_raise_under_a_mesh(arch):
               lambda: train_step.make_eval_step(model, ParallelConfig(), MESH_STANDIN),
               lambda: train_step.make_train_step(model, OptConfig(), ParallelConfig(),
                                                  MESH_STANDIN))
-    for make in makers:
-        if arch in WAITING:
+    for i, make in enumerate(makers):
+        if arch in WAITING or (arch in TRAIN_WAITING and i == len(makers) - 1):
             with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 5\.3"):
                 make()
         else:
@@ -352,21 +356,28 @@ def test_archs_outside_the_slice_raise_under_a_mesh(arch):
     if arch in WAITING:
         with pytest.raises(NotImplementedError, match=WAITING[arch]):
             sharding.check_mesh_support(cfg)
+    if arch in TRAIN_WAITING:
+        sharding.check_mesh_support(cfg)
+        with pytest.raises(NotImplementedError, match=TRAIN_WAITING[arch]):
+            sharding.check_mesh_support(cfg, train=True)
 
 
 def test_decode_and_train_steps_raise_under_a_mesh():
-    """The decode and train steps build under a mesh for a dense arch, and
-    for an MoE arch raise, naming the item that waits."""
+    """The decode and train steps build under a mesh for a dense arch; the
+    decode step raises for an SSD arch and the train step for an MoE arch
+    (which serves under a mesh), naming the item that waits."""
     model = Model(get_config("qwen3-8b", smoke=True), device="cpu", trainable=True)
     assert callable(serve_step.make_decode_step(model, mesh=MESH_STANDIN))
     assert callable(serve_step.make_decode_step(model, parallel=ParallelConfig(
         seq_shard_cache=True), mesh=MESH_STANDIN))
     assert callable(train_step.make_train_step(model, OptConfig(), ParallelConfig(),
                                                MESH_STANDIN))
+    ssm = Model(get_config("mamba2-780m", smoke=True), device="cpu", trainable=True)
+    with pytest.raises(NotImplementedError, match=r"SSD .*item 5\.3"):
+        serve_step.make_decode_step(ssm, mesh=MESH_STANDIN)
     moe = Model(get_config("mixtral-8x7b", smoke=True), device="cpu", trainable=True)
-    with pytest.raises(NotImplementedError, match=r"MoE .*item 5\.3"):
-        serve_step.make_decode_step(moe, mesh=MESH_STANDIN)
-    with pytest.raises(NotImplementedError, match=r"MoE .*item 5\.3"):
+    assert callable(serve_step.make_decode_step(moe, mesh=MESH_STANDIN))
+    with pytest.raises(NotImplementedError, match=r"MoE .*train step.*item 5\.3"):
         train_step.make_train_step(moe, OptConfig(), ParallelConfig(), MESH_STANDIN)
     with pytest.raises(ValueError, match="pass parallel, not ctx"):
         serve_step.make_forward_step(model, Ctx(), mesh=MESH_STANDIN)
@@ -377,4 +388,19 @@ def test_decode_and_train_steps_raise_under_a_mesh():
 def test_without_a_mesh_there_is_no_hook():
     assert Ctx().shard_fn is None and Ctx().shard(3, "batch") == 3
     assert train_step.make_ctx(ParallelConfig()).shard_fn is None
+    assert Ctx().moe_groups == train_step.make_ctx(ParallelConfig()).moe_groups == 1
     assert sharding.make_shard_fn(None, ParallelConfig()) is None
+
+
+def test_moe_dispatch_groups_follow_the_data_parallel_degree():
+    """A step's MoE dispatch groups, as the JAX make_ctx sets them: the
+    data-parallel degree (pod x data), times the model axis under zero3; 1
+    without a mesh. The serving steps' Ctx takes the same."""
+    mesh3 = {"pod": 2, "data": 16, "model": 16}
+    assert train_step.moe_groups(ParallelConfig(), MESH_STANDIN) == 2
+    assert train_step.moe_groups(ParallelConfig(model_axis="zero3"), MESH_STANDIN) == 8
+    assert train_step.moe_groups(ParallelConfig(), mesh3) == 32
+    assert train_step.moe_groups(ParallelConfig(), None) == 1
+    assert train_step.make_ctx(ParallelConfig(), MESH_STANDIN).moe_groups == 2
+    assert serve_step._ctx(None, None, MESH_STANDIN).moe_groups == 2
+    assert serve_step._ctx(None, None, None).moe_groups == 1

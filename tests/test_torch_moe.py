@@ -320,6 +320,144 @@ def test_moe_apply_matches_jax(case):
     assert abs(got_aux.item() - float(want_aux)) <= AUX_RTOL * abs(float(want_aux))
 
 
+# ---------------------------------------------------------------------------
+# dispatch groups: moe_apply with Ctx(moe_groups=G) against the JAX layer
+# ---------------------------------------------------------------------------
+
+# T = 2 x 48 = 96 tokens: 1, 2 and 4 groups of 96, 48 and 24 tokens, each
+# with its own capacity (at cf 0.5: 24, 16 and 8 slots an expert, so other
+# assignments drop); 5 groups do not divide 96, and the layer routes one
+GROUPED_CASES = ("mixtral-cf0.5-drops", "dbrx-E16-k4")
+GROUPS = (1, 2, 4, 5)
+
+
+def _parent_moe_apply(p, x, cfg):
+    """The port's moe_apply as it was before dispatch groups (every call's
+    tokens one group), restated line for line: the layer that moe_groups 1
+    must reproduce bit for bit."""
+    B, S_, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    G, Tg = 1, B * S_
+    C = moe.capacity(Tg, E, K, cfg.capacity_factor)
+    xt = x.reshape(G, Tg, D)
+    r = moe.route(p["router"], xt, cfg, C)
+    density = torch.nn.functional.one_hot(r.top_i[..., 0], E).float().mean(dim=(0, 1))
+    aux = E * (density * r.gates.mean(dim=(0, 1))).sum()
+    tok_of = (torch.arange(Tg * K, device=x.device) // K).expand(G, -1)
+    slot_safe = torch.where(r.keep, r.slot, E * C)
+    idx = torch.zeros((G, E * C + 1), dtype=torch.int64, device=x.device)
+    idx = idx.scatter_(1, slot_safe, tok_of)[:, :-1]
+    valid = torch.zeros((G, E * C + 1), dtype=torch.bool, device=x.device)
+    valid = valid.scatter_(1, slot_safe, r.keep)[:, :-1]
+    xg = xt.gather(1, idx[..., None].expand(-1, -1, D)).reshape(G, E, C, D)
+    xg = xg * valid.reshape(G, E, C, 1).to(xg.dtype)
+    h = torch.einsum("gecd,edf->gecf", xg, p["wi"])
+    g = torch.einsum("gecd,edf->gecf", xg, p["wg"])
+    g = (torch.nn.functional.silu(g) if cfg.act == "silu"
+         else torch.nn.functional.gelu(g, approximate="tanh"))
+    y = torch.einsum("gecf,efd->gecd", h * g, p["wo"])
+    read = torch.where(r.keep, r.slot, 0)
+    yt = y.reshape(G, E * C, D).gather(1, read[..., None].expand(-1, -1, D))
+    yt = yt * r.keep[..., None].to(yt.dtype)
+    out = (yt.reshape(G, Tg, K, D) * r.top_w.reshape(G, Tg, K, 1).to(yt.dtype)).sum(dim=2)
+    return out.reshape(B, S_, D), aux
+
+
+@pytest.mark.parametrize("groups", GROUPS)
+@pytest.mark.parametrize("case", GROUPED_CASES)
+def test_grouped_moe_apply_matches_jax(case, groups):
+    """The port's moe_apply with Ctx(moe_groups=G) against the JAX moe_apply
+    with Ctx(moe_groups=G), f32: each group routed with its own capacity
+    (top-k ids and kept assignments equal to the reference's lines run on
+    that group alone), out within 1e-5 of max |out| and aux within 1e-6;
+    where G does not divide the tokens, one group."""
+    arch, change = MOE_CASES[case]
+    jcfg = jax_config(arch, smoke=True).replace(**change)
+    cfg = get_config(arch, smoke=True).replace(**change)
+    jp = _moe_layer_params(arch, change)
+    x = np.random.RandomState(3).randn(2, S, cfg.d_model).astype(np.float32)
+    want, want_aux = jax_moe.moe_apply(jp, jnp.asarray(x), jcfg, JCtx(moe_groups=groups))
+    G = groups if (2 * S) % groups == 0 else 1
+    per_group = [_jax_routing(xg[None], jp["router"], jcfg)
+                 for xg in x.reshape(G, -1, cfg.d_model)]
+
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    routes = []
+    port_route = moe.route
+
+    def recording(*a):
+        routes.append(port_route(*a))
+        return routes[-1]
+
+    moe.route = recording
+    try:
+        got, got_aux = moe.moe_apply(tp, torch.from_numpy(x), cfg, Ctx(moe_groups=groups))
+    finally:
+        moe.route = port_route
+    (r,) = routes
+    Tg = 2 * S // G
+    assert r.top_i.shape[:2] == (G, Tg) and r.keep.shape == (G, Tg * cfg.experts_per_token)
+    for i, (gates, top_i, keep) in enumerate(per_group):
+        _assert_same_choices(r.top_i[i:i + 1].numpy(), top_i, gates, cfg.experts_per_token,
+                             f"{case}, group {i} of {G}")
+        np.testing.assert_array_equal(r.keep[i:i + 1].numpy(), keep)
+    if "drops" in case:
+        assert not r.keep.all()
+    assert got.shape == x.shape and got.dtype == torch.float32
+    assert _rel(got.numpy(), want) <= OUT_RTOL
+    assert abs(got_aux.item() - float(want_aux)) <= AUX_RTOL * abs(float(want_aux))
+
+
+def test_dispatch_groups_route_with_their_own_capacity():
+    """At cf 0.5 one, two and four groups keep different assignments: each
+    group counts the positions in an expert from its own first token."""
+    arch, change = MOE_CASES["mixtral-cf0.5-drops"]
+    cfg = get_config(arch, smoke=True).replace(**change)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in _moe_layer_params(arch, change).items()}
+    x = torch.from_numpy(np.random.RandomState(3).randn(2, S, cfg.d_model).astype(np.float32))
+    kept = {}
+    port_route = moe.route
+
+    def recording(router, xt, cfg_, cap):
+        r = port_route(router, xt, cfg_, cap)
+        kept[xt.shape[0]] = (cap, r.keep.reshape(-1))
+        return r
+
+    moe.route = recording
+    try:
+        outs = {g: moe.moe_apply(tp, x, cfg, Ctx(moe_groups=g))[0] for g in (1, 2, 4)}
+    finally:
+        moe.route = port_route
+    assert [kept[g][0] for g in (1, 2, 4)] == [24, 16, 8]
+    assert not torch.equal(kept[1][1], kept[2][1]) and not torch.equal(kept[2][1], kept[4][1])
+    assert not torch.equal(outs[1], outs[2]) and not torch.equal(outs[2], outs[4])
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_one_group_is_bit_equal_to_the_ungrouped_layer(case):
+    """moe_apply with moe_groups 1 (and with no ctx) computes exactly what
+    the layer computed before dispatch groups: out, aux and the gradients of
+    x and of every weight bit for bit."""
+    arch, change = MOE_CASES[case]
+    cfg = get_config(arch, smoke=True).replace(**change)
+    jp = _moe_layer_params(arch, change)
+    x0 = torch.from_numpy(np.random.RandomState(3).randn(2, S, cfg.d_model).astype(np.float32))
+    dy = torch.from_numpy(np.random.RandomState(4).randn(2, S, cfg.d_model).astype(np.float32))
+
+    def run(fn):
+        p = {k: torch.from_numpy(np.array(v)).requires_grad_() for k, v in jp.items()}
+        x = x0.clone().requires_grad_()
+        out, aux = fn(p, x)
+        ((out * dy).sum() + aux).backward()
+        return [out, aux, x.grad] + [p[k].grad for k in sorted(p)]
+
+    want = run(lambda p, x: _parent_moe_apply(p, x, cfg))
+    for ctx in (Ctx(), Ctx(moe_groups=1), None):
+        got = run(lambda p, x: moe.moe_apply(p, x, cfg, ctx))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (case, ctx)
+
+
 def test_moe_apply_bf16_keeps_activation_dtype():
     """bf16 experts and activations: the router still runs in f32 (its
     gates are f32), and out is bf16 like x; aux is f32."""
