@@ -205,7 +205,13 @@ a kernel's plain version:
              at 1, 2 and 4 layers (MESH_MOE_CAPTURE): one K1 node a
              layer, the FLOPs and every collective's count and bytes
              exactly linear in depth, each collective kind a layer printed
-             beside qwen3-8b's dense layer's
+             beside qwen3-8b's dense layer's; and their train step on
+             (16, 16) at full width, B 16 x 2048, at 1, 2 and 4 layers
+             (MESH_MOE_TRAIN_CAPTURE: mixtral-8x7b ff over the model axis,
+             dbrx-132b one expert a model rank): the K1 nodes a layer that
+             phase 8's MoE train step launched a rank and a layer, exactly
+             linear in depth, each collective kind a layer printed beside
+             qwen3-8b's dense train layer's
   8. mesh    the serving path sharded over a DeviceMesh under the default
              ParallelConfig's rules (tp, fsdp, sequence parallel), every
              rank simulated on the card by LocalTensorMode
@@ -245,7 +251,13 @@ a kernel's plain version:
              gathered gradient leaf within 1e-3 of the leaf's max, the
              sharded update within 1e-6 of the port's unsharded
              adamw_update of the gathered state, K1's forward and backward
-             launches 8 x the unsharded step's (96 and 48)
+             launches 8 x the unsharded step's (96 and 48); then
+             mixtral-8x7b at full width and 1 layer in f32 on (2, 4)
+             (MESH_MOE_TRAIN: expert parallel, 2 dispatch groups), B 4 x S
+             512, 2 steps by the same rules, the router leaves among them by
+             name, the sharded routing pinned to the unsharded step's and
+             the choices a free step would have flipped printed, K1's
+             launches 8 x the unsharded step's (16 and 8)
 Prints the kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -2402,7 +2414,9 @@ def pinned_routing(routes0, local=None):
         r = route(router, xt, cfg, cap)
         r0 = routes0[len(natural)]
         if local is not None:
-            r0 = type(r0)(*(local(t) for t in r0))
+            # the tables it pins (the gates of a recorded training step
+            # carry its autograd graph, which a simulated rank's cut refuses)
+            r0 = r0._replace(top_i=local(r0.top_i), keep=local(r0.keep), slot=local(r0.slot))
         natural.append(r)
         top_w = r.gates.gather(-1, r0.top_i)
         top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -2874,10 +2888,19 @@ def phase_mesh(torch, card, runs=MESH_RUNS):
 # by the gnorm rule
 MESH_TRAIN = (ARCH, 6, (2, 4), 4, 512, 3)
 MESH_TRAIN_RTOL = {"loss": 1e-5, "gnorm": 1e-5, "grad": 1e-3, "update": 1e-6}
+# the MoE train step under a mesh, by the same rules: mixtral-8x7b at full
+# width and 1 layer in f32 on (2, 4), expert parallel (2 of its 8 experts a
+# model rank, 2 dispatch groups, one a data rank), B 4 x S 512, 2 steps.
+# One layer is 1.713 B parameters (27.4 GB of f32 params, gradients and
+# moments), held once sharded and once unsharded; 8 ranks' gathered expert
+# weights add ~11 GB. The sharded routing is pinned to the unsharded step's
+# (full-width gates lie within 1e-6 of a tie), remat dots recomputing each
+# layer's routing in the backward as the unsharded step does
+MESH_MOE_TRAIN = (MIXTRAL, 1, (2, 4), 4, 512, 2)
 
 
-def phase_mesh_train(torch, card):
-    """MESH_TRAIN: `steps` steps of the train step of the default
+def phase_mesh_train(torch, card, run=MESH_TRAIN):
+    """`run` (MESH_TRAIN, MESH_MOE_TRAIN): `steps` steps of the train step of the default
     ParallelConfig (tp, fsdp, sequence parallel, remat dots) under a mesh,
     every rank simulated on the card, each against an unsharded train step
     on the card from the same state: both models are made from one seed
@@ -2891,11 +2914,15 @@ def phase_mesh_train(torch, card):
     moments, given the sharded step's global norm, which is held against the
     norm of the gathered gradients; K1's forward and backward launches (counts reset just before
     each step and read just after) 8 x the unsharded step's, and no other
-    kernel. Returns {path: launches of the first sharded step, seconds,
+    kernel. An MoE arch's unsharded step routes in the mesh's dispatch
+    groups, its routings are recorded, and the sharded step is pinned to
+    them (`pinned_routing`; the choices it would have made left free are
+    printed); its router leaves are checked by name among the gradient
+    leaves. Returns {path: launches of the first sharded step, seconds,
     checks}."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.configs.registry import get_config
-    from repro_torch.models import Model
+    from repro_torch.models import Ctx, Model
     from repro_torch.parallel import sharding
     from repro_torch.parallel.mesh import coordinate, make_mesh, rank_map, simulated_ranks
     from repro_torch.train import optimizer as optim
@@ -2903,8 +2930,9 @@ def phase_mesh_train(torch, card):
     from repro_torch.train.optimizer import OptConfig, OptState
     from torch.distributed.tensor import DTensor
 
-    arch, layers, shape, batch, seq, steps = MESH_TRAIN
+    arch, layers, shape, batch, seq, steps = run
     cfg = mesh_config(get_config, arch, layers)
+    moe_run = bool(cfg.num_experts)
     world, tol = math.prod(shape), MESH_TRAIN_RTOL
     counters = _launch_counters()
     opt, par = OptConfig(**TRAIN_OPT), ParallelConfig()
@@ -2921,7 +2949,7 @@ def phase_mesh_train(torch, card):
         memory[what] = torch.cuda.memory_allocated() / 1e9
         log(f"[mesh] train {cfg.name}: {memory[what]:.2f} GB allocated {what}")
 
-    def run(step, state, inputs, loss_of):
+    def timed_step(step, state, inputs, loss_of):
         for fn in counters.values():
             fn.launches = 0
         torch.cuda.synchronize()
@@ -2946,10 +2974,17 @@ def phase_mesh_train(torch, card):
         fail(f"train {cfg.name} mesh {shape}: two models of seed {SEED} have other weights")
     n_params = sum(p.numel() for p in models[0].parameters())
     state_u = ts.init_train_state(models[0])
-    step_u = ts.make_train_step(models[0], opt, par)
+    # the unsharded step routes in the mesh's dispatch groups (its Ctx's)
+    groups = ts.moe_groups(par, dict(zip(MESH_AXES[len(shape)], shape)))
+    make_ctx = ts.make_ctx
+    ts.make_ctx = lambda parallel, mesh=None: Ctx(remat=parallel.remat, moe_groups=groups)
+    try:
+        step_u = ts.make_train_step(models[0], opt, par)
+    finally:
+        ts.make_ctx = make_ctx
     model = models[1]
     del models
-    ref, got, checks, grads_u = [], [], [], {}
+    ref, got, checks, grads_u, flips = [], [], [], {}, []
 
     def keep_grads(cfg_, params, grads, state, ndims=None):
         grads_u.clear()
@@ -3006,7 +3041,7 @@ def phase_mesh_train(torch, card):
 
         @torch.no_grad()
         def check_update(cfg_, params, grads, st, ndims=None):
-            errs = {"grad": 0.0, "update": 0.0, "placed": True}
+            errs = {"grad": 0.0, "router": 0.0, "routers": 0, "update": 0.0, "placed": True}
             if not checks:
                 held("after the first sharded backward")
             g = {}
@@ -3015,7 +3050,11 @@ def phase_mesh_train(torch, card):
                                       for t in (grads[k], st.mu[k], st.nu[k]))
                 g[k] = whole(grads[k])
                 with mode.disable():
-                    errs["grad"] = max(errs["grad"], rel(g[k], grads_u[k].cuda()))
+                    e = rel(g[k], grads_u[k].cuda())
+                errs["grad"] = max(errs["grad"], e)
+                if k.endswith(".moe.router"):
+                    errs["router"] = max(errs["router"], e)
+                    errs["routers"] += 1
             set_unsharded(params, st)
             out = adamw(cfg_, params, grads, st, ndims)
             norm = float(out[2]["gnorm"])
@@ -3045,18 +3084,28 @@ def phase_mesh_train(torch, card):
             checks.append(errs)
             return out
 
+        local = rank_groups(mesh, groups)
         t0 = time.perf_counter()
         for i in range(steps):
             if i:
                 set_unsharded(state.params, state.opt)
             ts.adamw_update = keep_grads
             try:
-                with mode.disable():
-                    state_u, r = run(step_u, state_u, data, float)
+                with mode.disable(), (recorded_layers(resid=False) if moe_run
+                                      else contextlib.nullcontext(([], []))) as (routes0, _):
+                    state_u, r = timed_step(step_u, state_u, data, float)
                 ref.append(r)
                 ts.adamw_update = check_update
-                state, r = run(step, state, inputs, lambda x: float(x.full_tensor()))
+                with (pinned_routing(routes0, local) if moe_run
+                      else contextlib.nullcontext([])) as natural:
+                    state, r = timed_step(step, state, inputs, lambda x: float(x.full_tensor()))
                 got.append(r)
+                if moe_run:
+                    if len(natural) != len(routes0):
+                        fail(f"train {cfg.name} mesh {shape} step {i + 1}: {len(natural)} "
+                             f"MoE calls, the unsharded step made {len(routes0)}")
+                    flips.append(routing_flips(torch, mode, mesh, natural, routes0, local))
+                del routes0, natural
             finally:
                 ts.adamw_update = adamw
         del state, step, inputs
@@ -3072,14 +3121,18 @@ def phase_mesh_train(torch, card):
             f"adamw_update of the gathered state and the sharded norm {c['update']:.2e} (rule "
             f"{tol['update']:g}); the norms {c['norm']:.2e} apart (rule {tol['gnorm']:g}); "
             f"launches {s['launches']} (unsharded {r['launches']}); {s['s']:.2f} s (unsharded "
-            f"{r['s'] * 1e3:.1f} ms)")
+            f"{r['s'] * 1e3:.1f} ms)"
+            + (f"; routers {c['router']:.2e} (rule {tol['grad']:g}); {groups} dispatch groups, "
+               f"routed as the unsharded step (pinned); left free, the MoE calls (forward, "
+               f"then remat's recompute) would have chosen other experts (another order of "
+               f"them) for these tokens of {batch * seq}: {flips[i]}" if moe_run else ""))
         if s["launches"] != want or not s["launches"]["flash_attention_bwd"]:
             fail(f"{path} step {i + 1}: launches {s['launches']}, want {want}")
         bad = [k for k in ("loss", "gnorm")
                if not math.isfinite(s[k]) or abs(s[k] - r[k]) > tol[k] * abs(r[k])]
-        bad += [k for k, rule in (("grad", "grad"), ("update", "update"), ("norm", "gnorm"))
-                if not c[k] <= tol[rule]]
-        if bad or not c["placed"]:
+        bad += [k for k, rule in (("grad", "grad"), ("router", "grad"), ("update", "update"),
+                                  ("norm", "gnorm")) if not c[k] <= tol[rule]]
+        if bad or not c["placed"] or c["routers"] != (cfg.num_layers if moe_run else 0):
             fail(f"{path} step {i + 1}: {bad} off (placed {c['placed']}): {s}, unsharded {r}, "
                  f"{c}")
     log(f"[mesh] {path}: {world} ranks, {n_params / 1e9:.3f}B params, B {batch} x S {seq}, "
@@ -3090,7 +3143,8 @@ def phase_mesh_train(torch, card):
                    "unsharded_ms": [r["s"] * 1e3 for r in ref], "ranks": world,
                    "layers": cfg.num_layers, "config": cfg.name, "mesh": list(shape),
                    "loss": [s["loss"] for s in got], "gnorm": [s["gnorm"] for s in got],
-                   "checks": checks, "memory_gb": memory, "peak_gb": peak}}
+                   "checks": checks, "memory_gb": memory, "peak_gb": peak,
+                   "moe_groups": groups if moe_run else 0, "routing_flips": flips}}
 
 
 # ---------------------------------------------------------------------------
@@ -3143,6 +3197,12 @@ MESH_TRAIN_CAPTURE = (QWEN, (16, 16), 16, (1, 2, 4))
 # collective kind's count and bytes a layer are printed beside those of
 # qwen3-8b's dense layer, captured at the first two depths
 MESH_MOE_CAPTURE = ((MIXTRAL, DBRX), QWEN, (16, 16), 16, (1, 2, 4))
+# rank 0's program of the MoE archs' train step on (16, 16) at full width, one
+# sequence of TRAIN_SEQ a data rank (16 dispatch groups), remat dots:
+# mixtral-8x7b with ff over the model axis, dbrx-132b one expert a model rank
+# (expert parallelism). Held as MESH_TRAIN_CAPTURE is (check_train_capture),
+# its K1 nodes a layer against phase 8's MoE train step
+MESH_MOE_TRAIN_CAPTURE = ((MIXTRAL, DBRX), (16, 16), 16, (1, 2, 4))
 
 
 def count_flops_of(torch, fn):
@@ -3325,6 +3385,9 @@ def capture_jobs(get_config):
     arch, mesh, batch, depths = MESH_TRAIN_CAPTURE
     jobs += [(mesh_config(get_config, arch, L), mesh_what("train", mesh, batch))
              for L in depths]
+    archs, mesh, batch, depths = MESH_MOE_TRAIN_CAPTURE
+    jobs += [(mesh_config(get_config, arch, L), mesh_what("train", mesh, batch))
+             for arch in archs for L in depths]
     archs, dense, mesh, batch, depths = MESH_MOE_CAPTURE
     jobs += [(mesh_config(get_config, arch, L), mesh_what("forward", mesh, batch))
              for arch in archs for L in depths]
@@ -3355,38 +3418,63 @@ def roofline_ms(flops, nbytes):
     return max(t_ops, t_bytes), t_ops, t_bytes
 
 
-def check_train_capture(by_key, mesh_train):
-    """Gate (v) of phase_capture: rank 0's program of the FSDP train step
-    (MESH_TRAIN_CAPTURE) has, a layer, the K1 forward and backward nodes
-    that phase 8's sharded train step launched a rank and a layer, and its
-    FLOPs and every collective's count and bytes are exactly linear in
-    depth. `by_key`: the captures by (config, what)."""
-    arch, shape, batch, depths = MESH_TRAIN_CAPTURE
-    run = next(iter(mesh_train.values()))
+def launches_a_layer(run):
+    """{kernel: launches a rank and a layer} of one of phase 8's sharded
+    train runs (its first step)."""
     per_layer = {}
     for name, n in run["launches"].items():
         per_layer[name], rest = divmod(n, run["ranks"] * run["layers"])
         if rest:
-            fail(f"{name}: phase 8's sharded train step launched {n}, not a whole number "
-                 f"a rank and a layer")
-    caps_t = [by_key[(f"{arch}-{L}layer", mesh_what("train", shape, batch))] for L in depths]
-    for c, L in zip(caps_t, depths):
-        comm = {k: f"{v['count']} ({v['bytes'] / 1e6:.3f} MB)" for k, v in sorted(c["comm"].items())}
-        log(f"[capture] rank 0 of {arch} train at {L} layers on mesh {shape} ({c['world']} ranks, "
-            f"B {batch} x S {TRAIN_SEQ}, FSDP, remat dots): {c['parsed_flops']:.6e} FLOPs a rank, "
-            f"COMM_COLL {comm}, {c['comm_bytes'] / 1e6:.3f} MB in all; kernel nodes "
-            f"{c['kernel_nodes']}; {c['seconds']:.1f} s")
-        want = {name: L * n for name, n in per_layer.items()}
-        if c["world"] != math.prod(shape) or c["kernel_launch_nodes"] != want:
-            fail(f"capture {arch} train at {L} layers mesh {shape}: world {c['world']}, kernel "
-                 f"nodes {c['kernel_launch_nodes']}, want {want} (phase 8's launches a rank "
-                 f"and a layer)")
-    k, n_lines = linear_in_depth(caps_t, depths, f"{arch} train on mesh {shape}")
-    d1, d2, dn = depths
-    log(f"[capture] rank 0 of {arch} train on mesh {shape}: FLOPs and every collective's count "
-        f"and bytes at {dn} layers = x({d1}) + {k} x (x({d2}) - x({d1})), exactly "
-        f"({n_lines} lines); K1 nodes a layer {per_layer} = phase 8's launches a rank and "
-        f"a layer")
+            fail(f"{name}: phase 8's sharded train step of {run['config']} launched {n}, not a "
+                 f"whole number a rank and a layer")
+    return per_layer
+
+
+def check_train_capture(by_key, mesh_train):
+    """Gate (v) of phase_capture: rank 0's program of the FSDP train step
+    (MESH_TRAIN_CAPTURE) and of the MoE archs' train step
+    (MESH_MOE_TRAIN_CAPTURE) has, a layer, the K1 forward and backward nodes
+    that phase 8's sharded dense (MoE) train step launched a rank and a
+    layer, and its FLOPs and every collective's count and bytes are exactly
+    linear in depth; each MoE arch's collective kinds a layer are printed
+    beside the dense train layer's. Fails if a capture or a run is missing.
+    `by_key`: the captures by (config, what)."""
+    runs = {bool(r["moe_groups"]): r for r in mesh_train.values()}
+    if set(runs) != {False, True}:
+        fail(f"phase 8 ran no dense or no MoE train step under a mesh: {list(mesh_train)}")
+    jobs = [(MESH_TRAIN_CAPTURE[0],) + MESH_TRAIN_CAPTURE[1:] + (runs[False],)]
+    jobs += [(arch,) + MESH_MOE_TRAIN_CAPTURE[1:] + (runs[True],)
+             for arch in MESH_MOE_TRAIN_CAPTURE[0]]
+    dense_layer = None
+    for arch, shape, batch, depths, run in jobs:
+        per_layer = launches_a_layer(run)
+        what = mesh_what("train", shape, batch)
+        caps_t = [by_key.get((f"{arch}-{L}layer", what)) for L in depths]
+        if any(c is None for c in caps_t):
+            fail(f"capture {arch} train on mesh {shape}: missing at depths {depths} "
+                 f"({[c is not None for c in caps_t]})")
+        for c, L in zip(caps_t, depths):
+            comm = {k: f"{v['count']} ({v['bytes'] / 1e6:.3f} MB)"
+                    for k, v in sorted(c["comm"].items())}
+            log(f"[capture] rank 0 of {arch} train at {L} layers on mesh {shape} ({c['world']} "
+                f"ranks, B {batch} x S {TRAIN_SEQ}, FSDP, remat dots): {c['parsed_flops']:.6e} "
+                f"FLOPs a rank, COMM_COLL {comm}, {c['comm_bytes'] / 1e6:.3f} MB in all; kernel "
+                f"nodes {c['kernel_nodes']}; {c['seconds']:.1f} s")
+            want = {name: L * n for name, n in per_layer.items()}
+            if c["world"] != math.prod(shape) or c["kernel_launch_nodes"] != want:
+                fail(f"capture {arch} train at {L} layers mesh {shape}: world {c['world']}, "
+                     f"kernel nodes {c['kernel_launch_nodes']}, want {want} (phase 8's "
+                     f"launches a rank and a layer of {run['config']})")
+        k, n_lines = linear_in_depth(caps_t, depths, f"{arch} train on mesh {shape}")
+        d1, d2, dn = depths
+        layer = per_layer_comm(*caps_t[:2])
+        dense_layer = dense_layer or layer
+        log(f"[capture] rank 0 of {arch} train on mesh {shape}: FLOPs and every collective's "
+            f"count and bytes at {dn} layers = x({d1}) + {k} x (x({d2}) - x({d1})), exactly "
+            f"({n_lines} lines); K1 nodes a layer {per_layer} = phase 8's launches a rank and "
+            f"a layer ({run['config']}); a layer: {layer}"
+            + ("" if layer is dense_layer else f", against {jobs[0][0]}'s dense train layer "
+                                               f"{dense_layer}"))
 
 
 def linear_in_depth(caps, depths, what):
@@ -3464,10 +3552,11 @@ def phase_capture(torch, card, proc, measured, real_flops, mesh_measured, mesh_t
     mesh phase's measured gemma3-4b path, its K1 nodes times the ranks equal
     the launches the simulated run counted (`mesh_measured`, phase_mesh's);
     its FLOPs, collectives and their bytes are printed; (v) rank 0's program
-    of qwen3-8b's FSDP train step on (16, 16) (MESH_TRAIN_CAPTURE) has, a
-    layer, the K1 forward and backward nodes that phase 8's sharded train
-    step launched a rank and a layer (`mesh_train`, phase_mesh_train's), and
-    its FLOPs and each collective's count and bytes are exactly linear in
+    of qwen3-8b's FSDP train step on (16, 16) (MESH_TRAIN_CAPTURE), and of
+    the MoE archs' (MESH_MOE_TRAIN_CAPTURE), has, a layer, the K1 forward
+    and backward nodes that phase 8's sharded dense (MoE) train step
+    launched a rank and a layer (`mesh_train`, phase_mesh_train's), and its
+    FLOPs and each collective's count and bytes are exactly linear in
     depth; (vi) rank 0's program of qwen3-8b's decode step on (16, 16)
     (MESH_DECODE_CAPTURES) has no kernel node, and under seq_shard_cache
     its collectives are the same at both cache lengths; (vii) rank 0's
@@ -3591,6 +3680,7 @@ def main(argv=None):
                     help="stop after the kernels phase (prints no result line)")
     ap.add_argument("--capture-process", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no GPU found (torch.cuda.is_available() is False)",
@@ -3623,7 +3713,7 @@ def main(argv=None):
     scan_bwd = timed("kernels rglru_scan_bwd", phase_kernels_rglru_bwd, torch, ptxas_rglru_bwd)
     kernels = [flash, flash_bwd, ssd, ssd_bwd, scan, scan_bwd]
     if args.kernels_only:
-        log(f"[time] seconds by phase: {seconds}")
+        log(f"[time] seconds by phase: {seconds}; total {time.perf_counter() - t_start:.1f} s")
         log(json.dumps({"kernels": kernels}))
         log(card)
         return 0
@@ -3685,6 +3775,7 @@ def main(argv=None):
     # on the card
     mesh_runs = timed("mesh", phase_mesh, torch, card)
     mesh_train = timed("mesh train", phase_mesh_train, torch, card)
+    mesh_train.update(timed("mesh train moe", phase_mesh_train, torch, card, MESH_MOE_TRAIN))
     # the capture of every measured path against its run
     measured = {(serve_config(get_config, a).name, "prefill"): (n["launches"], n["prefill_ms"])
                 for a, n in by_arch.items()}
@@ -3730,7 +3821,7 @@ def main(argv=None):
     scan_bwd["launches_by_path"] = {f"train {RG_ARCH}": scan_bwd["launches"]}
     scan_bwd["grad_check"] = rg_grad
     scan_bwd["train"] = {k: v for k, v in rg_train.items() if k != "launches"}
-    log(f"[time] seconds by phase: {seconds}")
+    log(f"[time] seconds by phase: {seconds}; total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

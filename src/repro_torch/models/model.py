@@ -492,9 +492,11 @@ def _save_weight_products(ctx, op, *args, **kwargs):
     makes of them), as ``checkpoint_dots_with_no_batch_dims`` does; recompute
     everything else. The MoE router's product is such a bmm and is kept; the
     expert products are bmm over the expert batch and are recomputed, as
-    under the JAX policy, where their expert dimension is a batch dimension."""
+    under the JAX policy, where their expert dimension is a batch dimension
+    (also where a rank of a mesh holds one expert: ``moe.expert_products``)."""
     if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
-            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1
+            and not moe.in_expert_products()):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 

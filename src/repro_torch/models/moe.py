@@ -30,6 +30,7 @@ Under a mesh it is called on each rank's local groups.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -37,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.models.layers import ParamSpec, local_product
+from repro_torch.models.layers import ParamSpec, grad_placements, local_product
 
 
 def moe_specs(cfg):
@@ -53,6 +54,29 @@ def moe_specs(cfg):
 def capacity(tokens: int, num_experts: int, k: int, cf: float) -> int:
     c = int(tokens * k * cf / num_experts)
     return max(8, -(-c // 8) * 8)           # round up to multiple of 8
+
+
+# True while a sharded MoE layer runs its expert products
+# (``expert_products``). The remat policy ``dots`` keeps the products with no
+# batch dimension; a rank that holds one expert runs its expert products as
+# bmm of a batch of one, which that policy cannot tell from a weight product
+# without this flag (the reference's policy sees the expert dim as a batch
+# dim). Unsharded, E > 1 experts make the batch
+_EXPERTS = [False]
+
+
+@contextlib.contextmanager
+def expert_products():
+    """While active, ``in_expert_products()`` is True."""
+    prev, _EXPERTS[0] = _EXPERTS[0], True
+    try:
+        yield
+    finally:
+        _EXPERTS[0] = prev
+
+
+def in_expert_products() -> bool:
+    return _EXPERTS[0]
 
 
 class Routing(NamedTuple):
@@ -169,25 +193,43 @@ def _sharded_moe(p, x, cfg, ctx, G, C):
     mesh = x.device_mesh
     xt = ctx.shard(_to_groups(x, G), "groups", None, "embed_nos")
     gpl = xt.placements                  # Shard(0) where a mesh dim splits the groups
-    router = ctx.shard(p["router"], None, None).to_local()
+    # Each boundary below between a DTensor and a rank's local tensor says
+    # where the local gradient lies. The router is gathered whole, but a
+    # rank's product covers only its groups: its gradient is a partial sum
+    # over the mesh dims that split them (Partial, reduce-scattered into the
+    # FSDP shards by the gather's backward), and whole elsewhere, where the
+    # ranks route the same groups alike
+    router = ctx.shard(p["router"], None, None)
+    router = router.to_local(grad_placements=grad_placements(router, xt))
+    # xt's local gradient (routing and dispatch) is whole for the rank's own
+    # groups, the same on the ranks that share them: placed as xt
     r = route(router, xt.to_local(), cfg, C)
     # the means over every group: each rank's over its groups, summed over
-    # the mesh dims that split them
+    # the mesh dims that split them. Backward: the all-reduce hands every
+    # rank the whole gradient of the sum, which is the gradient of its own
+    # summand (DTensor keeps a replicated gradient of a Partial input as is)
     n, partial = _split(mesh, gpl), [Partial() if q == Shard(0) else q for q in gpl]
     aux = _aux_loss(*(DTensor.from_local(m / n, mesh, partial, run_check=False)
                       .redistribute(mesh, [Replicate()] * mesh.ndim) for m in _means(r, E)), E)
 
+    # the dispatch tensor of the rank's groups, every expert: its gradient
+    # comes back whole from the expert-parallel transition's backward (an
+    # all-gather) or from local_product's reduction under ff
     xg = DTensor.from_local(_dispatch(xt.to_local(), r, E, C), mesh, gpl, run_check=False)
     # the expert-parallel transition: (groups, experts) over (data, model)
     xg = ctx.shard(xg, "groups", "experts", None, "embed_nos")
     x_axes = ("groups", "experts", None, "embed_nos")
-    h, g = (local_product("gecd,edf->gecf", xg, p[w], ctx, x_axes, ("experts", None, "ff"))
-            for w in ("wi", "wg"))
-    h = ctx.shard(h * _act(g, cfg), "groups", "experts", None, "ff")
-    y = local_product("gecf,efd->gecd", h, p["wo"], ctx, ("groups", "experts", None, "ff"),
-                      ("experts", "ff", None))
+    with expert_products():
+        h, g = (local_product("gecd,edf->gecf", xg, p[w], ctx, x_axes, ("experts", None, "ff"))
+                for w in ("wi", "wg"))
+        h = ctx.shard(h * _act(g, cfg), "groups", "experts", None, "ff")
+        y = local_product("gecf,efd->gecd", h, p["wo"], ctx, ("groups", "experts", None, "ff"),
+                          ("experts", "ff", None))
     y = ctx.shard(y, "groups", "experts", None, "embed_nos")
-    # combine on the rank's groups, every expert's outputs of them gathered
+    # combine on the rank's groups, every expert's outputs of them gathered.
+    # The local gradient of the gathered outputs is whole for the rank's
+    # groups (out's gradient is, and the routing is the same on the ranks
+    # that share them), so the gather's backward takes each rank's slice
     out = _combine(y.redistribute(mesh, gpl).to_local(), r)
     return _from_groups(DTensor.from_local(out, mesh, gpl, run_check=False), B, S), aux
 
@@ -201,7 +243,9 @@ def _to_groups(x, G):
     """x (B,S,D), a DTensor -> (G, T/G, D), a DTensor whose local shard is
     its rank's rows' tokens in order: split over the mesh dims that split
     x's batch where those hold whole groups (the groups follow the batch
-    rows, so nothing moves but the sequence, gathered), else whole."""
+    rows, so nothing moves but the sequence, gathered), else whole. The
+    rank's rows are whole on it, so their local gradient is placed as they
+    are (``_from_groups`` likewise)."""
     mesh = x.device_mesh
     pl = [q if q == Shard(0) else Replicate() for q in x.placements]
     if G % _split(mesh, pl):

@@ -198,22 +198,16 @@ _LAYERS_WAITING = {SSD: "SSD", RGLRU: "RG-LRU", CROSS_ATTN: "cross-attention",
                    ENC_ATTN: "encoder"}
 
 
-def check_mesh_support(cfg, train: bool = False) -> None:
+def check_mesh_support(cfg) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for an arch this
     slice does not run under a mesh: one with an SSD, RG-LRU, cross or
-    encoder layer, and with ``train`` one with MoE layers too (they serve
-    under a mesh; their train step waits)."""
+    encoder layer (the dense and MoE archs serve and train under one)."""
     kinds = set(cfg.layer_kinds) | ({ENC_ATTN} if cfg.is_encdec else set())
     names = [name for kind, name in _LAYERS_WAITING.items() if kind in kinds]
-    item = ("(ROADMAP queue 1, item 5.3: the SSD, RG-LRU, MoE train step and cross/enc "
-            "archs under a mesh)")
     if names:
         raise NotImplementedError(
-            f"{cfg.name}: its {', '.join(names)} layers do not run under a mesh yet {item}")
-    if train and cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: its MoE layers serve under a mesh, but its train step does not "
-            f"run under one yet {item}")
+            f"{cfg.name}: its {', '.join(names)} layers do not run under a mesh yet "
+            f"(ROADMAP queue 1, item 5.3: the SSD, RG-LRU and cross/enc archs under a mesh)")
 
 
 # ---------------------------------------------------------------------------

@@ -333,8 +333,8 @@ def test_axis_sizes_take_a_mapping_or_none():
 MESH_STANDIN = {"data": 2, "model": 4}
 WAITING = {"mamba2-780m": "SSD", "recurrentgemma-9b": "RG-LRU", "llama-3.2-vision-90b": "cross",
            "seamless-m4t-medium": "encoder"}
-# the MoE archs serve under a mesh; their train step waits
-TRAIN_WAITING = {"mixtral-8x7b": "MoE", "dbrx-132b": "MoE"}
+# the MoE archs serve and train under a mesh
+MOE_ARCHS = ("mixtral-8x7b", "dbrx-132b")
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
@@ -347,8 +347,8 @@ def test_archs_outside_the_slice_raise_under_a_mesh(arch):
               lambda: train_step.make_eval_step(model, ParallelConfig(), MESH_STANDIN),
               lambda: train_step.make_train_step(model, OptConfig(), ParallelConfig(),
                                                  MESH_STANDIN))
-    for i, make in enumerate(makers):
-        if arch in WAITING or (arch in TRAIN_WAITING and i == len(makers) - 1):
+    for make in makers:
+        if arch in WAITING:
             with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 5\.3"):
                 make()
         else:
@@ -356,16 +356,15 @@ def test_archs_outside_the_slice_raise_under_a_mesh(arch):
     if arch in WAITING:
         with pytest.raises(NotImplementedError, match=WAITING[arch]):
             sharding.check_mesh_support(cfg)
-    if arch in TRAIN_WAITING:
+    else:
         sharding.check_mesh_support(cfg)
-        with pytest.raises(NotImplementedError, match=TRAIN_WAITING[arch]):
-            sharding.check_mesh_support(cfg, train=True)
+        assert (arch in MOE_ARCHS) == bool(cfg.num_experts)
 
 
 def test_decode_and_train_steps_raise_under_a_mesh():
-    """The decode and train steps build under a mesh for a dense arch; the
-    decode step raises for an SSD arch and the train step for an MoE arch
-    (which serves under a mesh), naming the item that waits."""
+    """The decode and train steps build under a mesh for a dense and an MoE
+    arch; the decode step raises for an SSD arch, naming the item that
+    waits."""
     model = Model(get_config("qwen3-8b", smoke=True), device="cpu", trainable=True)
     assert callable(serve_step.make_decode_step(model, mesh=MESH_STANDIN))
     assert callable(serve_step.make_decode_step(model, parallel=ParallelConfig(
@@ -377,8 +376,8 @@ def test_decode_and_train_steps_raise_under_a_mesh():
         serve_step.make_decode_step(ssm, mesh=MESH_STANDIN)
     moe = Model(get_config("mixtral-8x7b", smoke=True), device="cpu", trainable=True)
     assert callable(serve_step.make_decode_step(moe, mesh=MESH_STANDIN))
-    with pytest.raises(NotImplementedError, match=r"MoE .*train step.*item 5\.3"):
-        train_step.make_train_step(moe, OptConfig(), ParallelConfig(), MESH_STANDIN)
+    assert callable(train_step.make_train_step(moe, OptConfig(), ParallelConfig(),
+                                               MESH_STANDIN))
     with pytest.raises(ValueError, match="pass parallel, not ctx"):
         serve_step.make_forward_step(model, Ctx(), mesh=MESH_STANDIN)
     with pytest.raises(ValueError, match="pass parallel, not ctx"):
