@@ -211,7 +211,13 @@ a kernel's plain version:
              dbrx-132b one expert a model rank): the K1 nodes a layer that
              phase 8's MoE train step launched a rank and a layer, exactly
              linear in depth, each collective kind a layer printed beside
-             qwen3-8b's dense train layer's
+             qwen3-8b's dense train layer's; and recurrentgemma-9b's 5-layer
+             bf16 prefill of phase 8 on (2, 4) (kernel nodes times its 8
+             ranks = the launches counted: 32 K3, 8 K1), its forward step
+             at full depth (38 layers) on (16, 16), B 16 (26 K3 nodes, each
+             on rank 0's 256 channels, and 12 K1 nodes: one a layer of each
+             kind), and its decode step on (16, 16) at B 128, cache 32,768
+             (MESH_RG_DECODE_CAPTURE: no kernel node)
   8. mesh    the serving path sharded over a DeviceMesh under the default
              ParallelConfig's rules (tp, fsdp, sequence parallel), every
              rank simulated on the card by LocalTensorMode
@@ -219,8 +225,8 @@ a kernel's plain version:
              for each rank on its local heads: gemma3-4b at full width as
              one superblock (6 layers) on (2, 4) (B 4 x 2048, 2 q heads over
              1 kv head a rank, 48 launches) in bf16 and in f32, and qwen3-8b
-             at full width and 1 layer on (16, 16) (256 ranks, B 16, 2 q
-             heads a rank over its 8 kv heads whole on every rank; 256
+             at full width and 1 layer on (8, 16) (128 ranks, B 8, 2 q
+             heads a rank over its 8 kv heads whole on every rank; 128
              launches) in bf16, and at 2 layers in f32 on (2, 16) (32 ranks,
              the same heads a rank; 64 launches); each
              sharded prefill's logits and layer 0's k cache against the
@@ -228,8 +234,8 @@ a kernel's plain version:
              DECODE_RTOL and f32 within 1e-3 of the largest value, the
              whole logits the same on every rank (and on 8 ranks the bf16
              cache within one bf16 ulp, CACHE_RTOL, in f32); then decode
-             under the mesh from that prefill's cache (4 steps, 2 on the
-             256 ranks), fed the unsharded run's greedy tokens, each step's
+             under the mesh from that prefill's cache (2 steps), fed the
+             unsharded run's greedy tokens, each step's
              logits against the unsharded decode from the unsharded cache
              by the same rule (the f32 runs keep their caches in f32), and
              no kernel launched in decode; and gemma3-4b's 6 layers in f32
@@ -242,10 +248,16 @@ a kernel's plain version:
              mixtral-8x7b on (2, 16) (ff over the model axis, 64
              launches), a free sharded prefill's routing flips printed,
              the checked run's routing pinned to the twin's expert ids
-             (full-width gates lie within 1e-6 of a tie); the seconds of
-             each run and step. Then the train step under a mesh (MESH_TRAIN):
+             (full-width gates lie within 1e-6 of a tie); and
+             recurrentgemma-9b at full width and 5 layers, one superblock
+             (RG-LRU, RG-LRU, local) and the (RG-LRU, RG-LRU) remainder, on
+             (2, 4) in bf16 and in f32 (B 4 x 2048, 4 decode steps, layer
+             0's h and conv history held too): K3 on each rank's 1024
+             local channels over the whole sequence, 32 launches a prefill,
+             K1 on 4 q heads over the one kv head, 8; the seconds of each
+             run and step. Then the train step under a mesh (MESH_TRAIN):
              gemma3-4b at full width as one superblock (6 layers) in f32 on
-             (2, 4), B 4 x S 512, 3 steps of the default ParallelConfig
+             (2, 4), B 4 x S 512, 2 steps of the default ParallelConfig
              (remat dots), each against an unsharded train step from the
              same params and moments: loss and gnorm within 1e-5, every
              gathered gradient leaf within 1e-3 of the leaf's max, the
@@ -2562,19 +2574,22 @@ def phase_train(torch, card, arch, count_flops=False):
 # fed the unsharded run's greedy tokens, each step's logits against the
 # unsharded decode's from the unsharded cache by the same rule. gemma3-4b on
 # (2, 4) at full width as one superblock (5 local + 1 global layers): 2 q
-# heads and 1 kv head a rank; qwen3-8b at full width and 1 layer on the
-# production mesh (16, 16): 2 q heads a rank and its 8 kv heads whole on
-# every rank (the GQA trap), 16 sequences so that the batch splits over the
-# data axis; its f32 check runs on (2, 16) at 2 layers, the same split of the
-# heads: on (16, 16) each of the 16 data ranks would gather the f32 weights
-# whole over its embed dim (FSDP), 16 x 4.1 GB, more than the card holds
-# beside the rest. The last run is long_500k's setting (seq_shard_cache): one
+# heads and 1 kv head a rank; qwen3-8b at full width and 1 layer on (8, 16),
+# the production mesh's model axis: 2 q heads a rank and its 8 kv heads whole
+# on every rank (the GQA trap), 8 sequences so that each data rank takes one,
+# as on the production mesh (16, 16), where it ran until the RG-LRU runs came
+# in (128 ranks take half its ~120 s); its f32 check runs on (2, 16) at 2
+# layers, the same split of the heads: on (16, 16) each of the 16 data ranks
+# would gather the f32 weights whole over its embed dim (FSDP), 16 x 4.1 GB,
+# more than the card holds beside the rest. The last run is long_500k's setting (seq_shard_cache): one
 # sequence, its cache of 8192 and the local layers' rings of 1024 split by
 # length over the data axis, decode as flash-decoding over them. LocalTensorMode
 # runs each operator once a rank, one rank after another (~0.7 s a layer and
 # a decode step on 8 ranks, ~17 s a layer on 256): the bf16 gemma3-4b run
 # was cut from 34 layers and qwen3-8b's 256 ranks from 2 when decode came in,
-# to keep chip_smoke.py within its time.
+# and the dense runs from 4 decode steps to 2 (and the mesh train run from 3
+# steps to 2) when the RG-LRU runs came in, to keep chip_smoke.py within its
+# time.
 # The MoE archs at full width and 2 layers, B 4 x 2048 in bf16, decoding 2
 # steps: dbrx-132b on (2, 4), expert parallelism (4 of its 16 experts a model
 # rank), and mixtral-8x7b on (2, 16), whose 8 experts do not divide 16, so
@@ -2589,7 +2604,12 @@ def phase_train(torch, card, arch, count_flops=False):
 # of bf16: 6.5 GB a layer, 2.5 GB of embedding and unembedding), sharded in
 # place after the unsharded run; each rank gathers its experts' FSDP shards
 # one weight at a time (8 x 0.53 GB) and the expert outputs of its group
-# (8 x 0.25 GB)
+# (8 x 0.25 GB). recurrentgemma-9b at full width and 5 layers, one superblock
+# (RG-LRU, RG-LRU, local) and the (RG-LRU, RG-LRU) remainder, on (2, 4): each
+# rank scans its 1024 of the 4096 RG-LRU channels over the whole sequence
+# (K3 launches 4 layers x 8 ranks = 32 times a prefill) and its local layer
+# runs 4 q heads over the one kv head; 0.98 B parameters in the 5 layers and
+# 1.05 B of embedding: about 4 GB in bf16 and 8 GB in f32
 class MeshRun(NamedTuple):
     arch: str
     layers: int | None          # None: all
@@ -2604,20 +2624,30 @@ class MeshRun(NamedTuple):
 
 
 MESH_RUNS = (
-    MeshRun(ARCH, 6, (2, 4), BATCH, PROMPT, "bfloat16", DECODE_RTOL, 4),
-    MeshRun(ARCH, 6, (2, 4), BATCH, PROMPT, "float32", 1e-3, 4),
-    MeshRun(QWEN, 1, (16, 16), 16, PROMPT, "bfloat16", DECODE_RTOL, 2),
-    MeshRun(QWEN, 2, (2, 16), BATCH, PROMPT, "float32", 1e-3, 4),
-    MeshRun(ARCH, 6, (2, 4), 1, PROMPT, "float32", 1e-3, 4, cache=8192, seq_shard_cache=True),
+    MeshRun(ARCH, 6, (2, 4), BATCH, PROMPT, "bfloat16", DECODE_RTOL, 2),
+    MeshRun(ARCH, 6, (2, 4), BATCH, PROMPT, "float32", 1e-3, 2),
+    MeshRun(QWEN, 1, (8, 16), 8, PROMPT, "bfloat16", DECODE_RTOL, 2),
+    MeshRun(QWEN, 2, (2, 16), BATCH, PROMPT, "float32", 1e-3, 2),
+    MeshRun(ARCH, 6, (2, 4), 1, PROMPT, "float32", 1e-3, 2, cache=8192, seq_shard_cache=True),
     MeshRun(DBRX, 2, (2, 4), BATCH, PROMPT, "bfloat16", DECODE_RTOL, 2),
     MeshRun(MIXTRAL, 2, (2, 16), BATCH, PROMPT, "bfloat16", DECODE_RTOL, 2),
+    MeshRun(RG_ARCH, 5, (2, 4), BATCH, PROMPT, "bfloat16", DECODE_RTOL, 4),
+    MeshRun(RG_ARCH, 5, (2, 4), BATCH, PROMPT, "float32", 1e-3, 4),
 )
 MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
-# the decode cache is bf16 whatever the params (attention.CACHE_DTYPE): an f32
-# k a summation order apart rounds to one bf16 ulp apart, 2^-7 of the largest.
-# Layer 0's k cache is checked up to CACHE_CHECK_RANKS ranks: whole on each of
-# qwen3-8b's 256 simulated ranks it would take 17 GB
+# the decode cache is bf16 whatever the params (attention.CACHE_DTYPE, and
+# rglru.CACHE_CONV_DTYPE for the RG-LRU conv history): an f32 k a summation
+# order apart rounds to one bf16 ulp apart, 2^-7 of the largest. Layer 0's
+# cache is checked up to CACHE_CHECK_RANKS ranks: whole on each of qwen3-8b's
+# 256 simulated ranks its k would take 17 GB
 CACHE_RTOL, CACHE_CHECK_RANKS = 2.0 ** -7, 8
+
+
+def layer0_cache(cache):
+    """The tensors of layer 0's decode cache that phase 8 holds: an attention
+    layer's k, a recurrent layer's h and conv history."""
+    c = cache["layers"][0]
+    return {"k": c["attn"]["k"]} if "attn" in c else dict(c["mixer"])
 
 
 def mesh_config(get_config, arch, layers):
@@ -2684,7 +2714,7 @@ def phase_mesh(torch, card, runs=MESH_RUNS):
     ms and the decode's readings}."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.configs.registry import get_config
-    from repro_torch.models import Ctx, Model, attention
+    from repro_torch.models import Ctx, Model, attention, rglru
     from repro_torch.parallel import sharding
     from repro_torch.parallel.mesh import make_mesh, simulated_ranks
     from repro_torch.train.serve_step import make_decode_step, make_prefill_step
@@ -2702,13 +2732,16 @@ def phase_mesh(torch, card, runs=MESH_RUNS):
         for fn in counters.values():
             fn.launches = 0
 
-    out, t_decode_all, cache_dtype = {}, 0.0, attention.CACHE_DTYPE
+    out, t_decode_all = {}, 0.0
+    cache_dtype, conv_dtype = attention.CACHE_DTYPE, rglru.CACHE_CONV_DTYPE
     for run in runs:
         arch, layers, shape, batch, seq, dtype, rtol, steps, cache_len, seq_shard = run
+        t_run = time.perf_counter()
         # an f32 run holds the mesh to f32 summation order alone, so its
         # decode cache is f32 too: in bf16 two sums some ulps apart can round
         # a cached value one bf16 ulp apart (as f32_replay's caches)
         attention.CACHE_DTYPE = torch.float32 if dtype == "float32" else cache_dtype
+        rglru.CACHE_CONV_DTYPE = torch.float32 if dtype == "float32" else conv_dtype
         cache_len = cache_len or seq + steps
         par = ParallelConfig(seq_shard_cache=seq_shard)
         cfg = mesh_config(get_config, arch, layers)
@@ -2731,8 +2764,8 @@ def phase_mesh(torch, card, runs=MESH_RUNS):
         with (recorded_layers(resid=False) if moe_run
               else contextlib.nullcontext(([], []))) as (routes0, _):
             ref, ref_cache = make_prefill_step(model, cache_len, ref_ctx)(tokens)
-            ref_k = (ref_cache["layers"][0]["attn"]["k"].clone()
-                     if world <= CACHE_CHECK_RANKS else None)
+            ref_c0 = ({n: t.clone() for n, t in layer0_cache(ref_cache).items()}
+                      if world <= CACHE_CHECK_RANKS else None)
             # the unsharded decode, greedy: its tokens feed both runs
             decode = make_decode_step(model, ref_ctx)
             feed, ref_steps = [ref.argmax(dim=-1, keepdim=True)], []
@@ -2776,8 +2809,8 @@ def phase_mesh(torch, card, runs=MESH_RUNS):
                 t_prefill = time.perf_counter() - t0
                 prefill_launches = launches()
                 got = logits.full_tensor()
-                got_k = (cache["layers"][0]["attn"]["k"].full_tensor() if ref_k is not None
-                         else None)
+                got_c0 = ({n: t.full_tensor() for n, t in layer0_cache(cache).items()}
+                          if ref_c0 is not None else None)
                 del logits, inputs, prefill
                 decode = make_decode_step(model, parallel=par, mesh=mesh)
                 tok_specs = sharding.batch_specs(model, "decode", batch, 1)
@@ -2799,21 +2832,23 @@ def phase_mesh(torch, card, runs=MESH_RUNS):
                 decode_launches = launches()
             flips = (routing_flips(torch, mode, mesh, natural, routes0, local) if moe_run
                      else [])
-            placed = str(cache["layers"][0]["attn"]["k"].placements)
+            placed = {n: str(t.placements) for n, t in layer0_cache(cache).items()}
             del cache, decode, natural, routes0
         got = got.reconcile()
         err = (got.float() - ref.float()).abs().max().item()
         top = ref.float().abs().max().item()
-        k_err, k_top = 0.0, 1.0
-        if ref_k is not None:
-            got_k = got_k.reconcile()
-            k_err = (got_k.float() - ref_k.float()).abs().max().item()
-            k_top = ref_k.float().abs().max().item()
+        c0 = {}                 # layer 0's cache: {name: (dtype, error, max)}
+        for n, r in (ref_c0 or {}).items():
+            g = got_c0[n].reconcile()
+            c0[n] = (str(r.dtype)[6:], (g.float() - r.float()).abs().max().item(),
+                     r.float().abs().max().item())
         finite = bool(torch.isfinite(got).all())
         path = (f"serve {cfg.name} {dtype} mesh {shape}"
                 + (" seq_shard_cache" if seq_shard else ""))
-        want = {name: world * cfg.num_layers if name == "flash_attention" else 0
-                for name in counters}
+        # K1 once a rank an attention layer, K3 once a rank a RG-LRU layer
+        want = {name: 0 for name in counters}
+        want["flash_attention"] = world * len(k1_layers(cfg))
+        want["rglru_scan"] = world * kind_layers(cfg, "rglru")[0]
         if moe_run:
             n_pre = cfg.num_layers
             log(f"[mesh] {path}: {groups} dispatch groups. A free sharded prefill chose "
@@ -2823,23 +2858,27 @@ def phase_mesh(torch, card, runs=MESH_RUNS):
                 f"unsharded run's expert ids; left free at each call it would have chosen "
                 f"otherwise for these tokens: prefill {flips[:n_pre]}, of {batch} a decode "
                 f"step {flips[n_pre:]}")
+        c_rtol = max(rtol, CACHE_RTOL)
         log(f"[mesh] {path}: {world} ranks, B {batch} x S {seq}, cache {cache_len}: unsharded "
             f"prefill and {steps} decode steps {t_ref:.1f} s (init included), sharding "
             f"{t_shard:.1f} s, sharded prefill {t_prefill * 1e3:.1f} ms; launches "
             f"{prefill_launches}; max |logit - unsharded| {err:.3e} of max |logit| {top:.3e} "
             f"({err / top:.2e}, rule {rtol:g}); "
-            + (f"layer 0's {str(ref_k.dtype)[6:]} k cache {k_err:.3e} of {k_top:.3e} (rule "
-               f"{max(rtol, CACHE_RTOL):g}); " if ref_k is not None else "")
+            + "".join(f"layer 0's {d} {n} cache {e:.3e} of {t:.3e} (rule {c_rtol:g}); "
+                      for n, (d, e, t) in c0.items())
             + f"peak {torch.cuda.max_memory_allocated() / 1e9:.1f} "
             f"GB; {card}")
+        if want["rglru_scan"]:
+            log(f"[mesh] {path}: K3 launched {prefill_launches['rglru_scan']} times in the "
+                f"sharded prefill, counted by its wrapper ({kind_layers(cfg, 'rglru')[0]} "
+                f"RG-LRU layers x {world} ranks, each on its rank's local channels)")
         if prefill_launches != want:
             fail(f"{path}: launches {prefill_launches}, want {want}")
-        k_rtol = max(rtol, CACHE_RTOL)
-        if not finite or tuple(got.shape) != tuple(ref.shape) or err > rtol * top \
-                or k_err > k_rtol * k_top:
+        off = {n: v for n, v in c0.items() if v[1] > c_rtol * v[2]}
+        if not finite or tuple(got.shape) != tuple(ref.shape) or err > rtol * top or off:
             fail(f"{path}: finite {finite}, shape {tuple(got.shape)} (want "
-                 f"{tuple(ref.shape)}), logits {err:.3e} > {rtol:g} x {top:.3e} or k cache "
-                 f"{k_err:.3e} > {k_rtol:g} x {k_top:.3e}")
+                 f"{tuple(ref.shape)}), logits {err:.3e} > {rtol:g} x {top:.3e} or layer 0's "
+                 f"cache (dtype, error, max) {off} beyond {c_rtol:g}")
         steps_out = []
         for i, (g, r, s) in enumerate(zip(dec, ref_steps, t_steps)):
             d_err = (g.float() - r.float()).abs().max().item()
@@ -2854,8 +2893,10 @@ def phase_mesh(torch, card, runs=MESH_RUNS):
                      f"logits {d_err:.3e} > {rtol:g} x {d_top:.3e} or not finite")
             steps_out.append({"err": d_err, "max_logit": d_top, "ms": s * 1e3})
         t_decode_all += sum(t_steps)
+        t_run = time.perf_counter() - t_run
         log(f"[mesh] {path}: decode under the mesh, {steps} steps in {sum(t_steps):.1f} s; "
-            f"launches {decode_launches}; layer 0's k cache placed {placed}")
+            f"launches {decode_launches}; layer 0's cache placed {placed}; the run took "
+            f"{t_run:.1f} s in all")
         if any(decode_launches.values()):
             fail(f"{path}: decode launched {decode_launches}, want none")
         out[path] = {"launches": prefill_launches, "prefill_ms": t_prefill * 1e3, "ranks": world,
@@ -2863,10 +2904,11 @@ def phase_mesh(torch, card, runs=MESH_RUNS):
                      "config": cfg.name, "mesh": list(shape), "dtype": dtype,
                      "seq_shard_cache": seq_shard, "moe_groups": groups,
                      "routing_flips": flips, "free_prefill": free,
+                     "cache": c0, "seconds": t_run,
                      "decode": {"launches": decode_launches, "steps": steps_out,
                                 "placed": placed}}
-        del model, ref, ref_k, got, got_k, dec, ref_steps, feed
-    attention.CACHE_DTYPE = cache_dtype
+        del model, ref, ref_c0, got, got_c0, dec, ref_steps, feed
+    attention.CACHE_DTYPE, rglru.CACHE_CONV_DTYPE = cache_dtype, conv_dtype
     log(f"[mesh] decode under the mesh: {t_decode_all:.1f} s of steps over "
         f"{len(runs)} runs")
     torch.cuda.empty_cache()
@@ -2886,7 +2928,7 @@ def phase_mesh(torch, card, runs=MESH_RUNS):
 # norms' summation orders, a few ulps apart, would move it through the
 # clip), and that norm against the one of the gathered gradients, relative,
 # by the gnorm rule
-MESH_TRAIN = (ARCH, 6, (2, 4), 4, 512, 3)
+MESH_TRAIN = (ARCH, 6, (2, 4), 4, 512, 2)
 MESH_TRAIN_RTOL = {"loss": 1e-5, "gnorm": 1e-5, "grad": 1e-3, "update": 1e-6}
 # the MoE train step under a mesh, by the same rules: mixtral-8x7b at full
 # width and 1 layer in f32 on (2, 4), expert parallel (2 of its 8 experts a
@@ -3174,7 +3216,12 @@ CAPTURE_DEEP = ((DBRX, "train", (1, 2, 40)), (LLAMA, "prefill", (5, 10, 100)))
 # (launch/mesh.py), 256 and 512 ranks, one sequence a (pod, data) rank
 MESH_CAPTURES = ((ARCH, MESH_RUNS[0].layers, "prefill", (2, 4), BATCH),
                  (ARCH, None, "forward", (16, 16), 16), (QWEN, None, "forward", (16, 16), 16),
-                 (QWEN, None, "forward", (2, 16, 16), 32))
+                 (QWEN, None, "forward", (2, 16, 16), 32),
+                 (RG_ARCH, 5, "prefill", (2, 4), BATCH), (RG_ARCH, None, "forward", (16, 16), 16))
+# rank 0's program of recurrentgemma-9b's decode step at full width and depth
+# on (16, 16): (mesh, batch, cache length), the decode_32k cell. No kernel
+# node: decode launches none, as phase 8's sharded decode
+MESH_RG_DECODE_CAPTURE = ((16, 16), 128, 32_768)
 # rank 0's program of the decode step on the production mesh (16, 16),
 # qwen3-8b at full width and depth: (mesh, batch, cache length,
 # seq_shard_cache), the decode_32k cell (B 128, cache 32,768) and the
@@ -3382,6 +3429,7 @@ def capture_jobs(get_config):
     jobs += [(mesh_config(get_config, arch, layers), mesh_what(step, mesh, batch))
              for arch, layers, step, mesh, batch in MESH_CAPTURES]
     jobs += [(get_config(QWEN), mesh_what("decode", *c)) for c in MESH_DECODE_CAPTURES]
+    jobs.append((get_config(RG_ARCH), mesh_what("decode", *MESH_RG_DECODE_CAPTURE)))
     arch, mesh, batch, depths = MESH_TRAIN_CAPTURE
     jobs += [(mesh_config(get_config, arch, L), mesh_what("train", mesh, batch))
              for L in depths]
@@ -3548,10 +3596,12 @@ def phase_capture(torch, card, proc, measured, real_flops, mesh_measured, mesh_t
     (`real_flops`: {(config, what): FLOPs}) equal the captured
     parsed_flops; the graph's roofline is not above the measured time; the
     full-depth captures are linear in depth against the two shallow ones;
-    (iv) rank 0's program under a mesh has one K1 node a layer, and on the
-    mesh phase's measured gemma3-4b path, its K1 nodes times the ranks equal
-    the launches the simulated run counted (`mesh_measured`, phase_mesh's);
-    its FLOPs, collectives and their bytes are printed; (v) rank 0's program
+    (iv) rank 0's program under a mesh has one K1 node an attention layer
+    and one K3 node a RG-LRU layer, and on the mesh phase's measured
+    gemma3-4b and recurrentgemma-9b paths, its kernel nodes times the ranks
+    equal the launches the simulated run counted (`mesh_measured`,
+    phase_mesh's; check_mesh_captures); its FLOPs, collectives and their
+    bytes are printed; (v) rank 0's program
     of qwen3-8b's FSDP train step on (16, 16) (MESH_TRAIN_CAPTURE), and of
     the MoE archs' (MESH_MOE_TRAIN_CAPTURE), has, a layer, the K1 forward
     and backward nodes that phase 8's sharded dense (MoE) train step
@@ -3561,8 +3611,9 @@ def phase_capture(torch, card, proc, measured, real_flops, mesh_measured, mesh_t
     (MESH_DECODE_CAPTURES) has no kernel node, and under seq_shard_cache
     its collectives are the same at both cache lengths; (vii) rank 0's
     program of the MoE archs' forward step on (16, 16) (MESH_MOE_CAPTURE)
-    has one K1 node a layer and is exactly linear in depth. Returns the
-    captures."""
+    has one K1 node a layer and is exactly linear in depth; (viii) rank 0's
+    program of recurrentgemma-9b's decode step on (16, 16) has no kernel
+    node (check_rg_decode_capture). Returns the captures."""
     if proc.wait(timeout=900) != 0:
         with open(CAPTURE_OUT + ".log") as f:
             fail(f"capture process exited {proc.returncode}:\n{f.read()[-4000:]}")
@@ -3619,31 +3670,66 @@ def phase_capture(torch, card, proc, measured, real_flops, mesh_measured, mesh_t
     from repro_torch.configs.registry import get_config
     runs = {(r["config"], tuple(r["mesh"])): r for r in mesh_measured.values()
             if r["dtype"] == "bfloat16"}
-    for arch, layers, step, shape, batch in MESH_CAPTURES:
+    check_mesh_captures(by_key, runs)
+    check_train_capture(by_key, mesh_train)
+    check_decode_captures(by_key)
+    check_moe_captures(by_key)
+    check_rg_decode_capture(by_key, runs)
+    return caps
+
+
+def check_mesh_captures(by_key, runs, captures=MESH_CAPTURES):
+    """Gate (iv) of phase_capture: rank 0's program of each of `captures`
+    (MESH_CAPTURES) has one K1 node an attention layer and one K3 node a
+    RG-LRU layer, and on a path that phase 8 measured (`runs`: its bf16
+    runs by (config, mesh)) its kernel nodes times the ranks equal the
+    launches the simulated run counted; the FLOPs a rank and the
+    collectives are printed."""
+    from repro_torch.configs.registry import get_config
+    for arch, layers, step, shape, batch in captures:
         cfg = mesh_config(get_config, arch, layers)
         c = by_key[(cfg.name, mesh_what(step, shape, batch))]
-        arch, layers = cfg.name, cfg.num_layers
+        arch = cfg.name
         comm = {k: f"{v['count']} ({v['bytes'] / 1e6:.1f} MB)" for k, v in c["comm"].items()}
         log(f"[capture] rank 0 of {arch} {step} on mesh {shape} ({c['world']} ranks, B "
             f"{batch} x S {PROMPT}): {c['parsed_flops']:.6e} FLOPs a rank, COMM_COLL "
             f"{comm}, {c['comm_bytes'] / 1e6:.1f} MB in all; kernel nodes {c['kernel_nodes']}")
-        if c["world"] != math.prod(shape) or c["kernel_launch_nodes"] != {
-                name: layers if name == "flash_attention" else 0
-                for name in c["kernel_launch_nodes"]}:
+        want = {name: 0 for name in c["kernel_launch_nodes"]}
+        want["flash_attention"] = len(k1_layers(cfg))
+        want["rglru_scan"] = kind_layers(cfg, "rglru")[0]
+        if c["world"] != math.prod(shape) or c["kernel_launch_nodes"] != want:
             fail(f"capture {arch} {step} mesh {shape}: world {c['world']}, kernel nodes "
-                 f"{c['kernel_launch_nodes']}")
+                 f"{c['kernel_launch_nodes']}, want {want}")
         run = runs.get((arch, shape))
         if run and step == "prefill" and batch == BATCH:
-            want = run["launches"]["flash_attention"]
-            if c["kernel_launch_nodes"]["flash_attention"] * c["world"] != want:
-                fail(f"capture {arch} {step} mesh {shape}: {c['kernel_launch_nodes']} K1 nodes "
-                     f"x {c['world']} ranks, the simulated run launched {want}")
-            log(f"[capture] rank 0 of {arch} {step} on mesh {shape}: K1 nodes x ranks = "
-                f"the simulated run's launches ({want})")
-    check_train_capture(by_key, mesh_train)
-    check_decode_captures(by_key)
-    check_moe_captures(by_key)
-    return caps
+            nodes = {k: n * c["world"] for k, n in c["kernel_launch_nodes"].items()}
+            if nodes != run["launches"]:
+                fail(f"capture {arch} {step} mesh {shape}: {c['kernel_launch_nodes']} kernel "
+                     f"nodes x {c['world']} ranks, the simulated run launched "
+                     f"{run['launches']}")
+            log(f"[capture] rank 0 of {arch} {step} on mesh {shape}: kernel nodes x ranks = "
+                f"the simulated run's launches "
+                f"({ {k: n for k, n in run['launches'].items() if n} })")
+
+
+def check_rg_decode_capture(by_key, runs):
+    """Gate (viii) of phase_capture: rank 0's program of recurrentgemma-9b's
+    decode step on (16, 16) (MESH_RG_DECODE_CAPTURE) has no kernel node, as
+    phase 8's sharded decode of its 5-layer cut launched none (`runs`: the
+    bf16 runs by (config, mesh))."""
+    run = next((r for (config, _), r in runs.items() if config.startswith(RG_ARCH)), None)
+    if run is None:
+        fail(f"phase 8 ran no bf16 {RG_ARCH} prefill under a mesh: {list(runs)}")
+    shape, batch, cache_len = MESH_RG_DECODE_CAPTURE
+    d = by_key[(RG_ARCH, mesh_what("decode", shape, batch, cache_len))]
+    comm = {k: f"{v['count']} ({v['bytes'] / 1e6:.3f} MB)" for k, v in sorted(d["comm"].items())}
+    log(f"[capture] rank 0 of {RG_ARCH} decode on mesh {shape} ({d['world']} ranks, B {batch}, "
+        f"cache {cache_len}): {d['parsed_flops']:.6e} FLOPs a rank, {d['parsed_hbm_bytes']:.6e} "
+        f"bytes, COMM_COLL {comm}; kernel nodes {d['kernel_nodes']}; {d['seconds']:.1f} s")
+    if d["world"] != math.prod(shape) or any(d["kernel_launch_nodes"].values()) \
+            or any(run["decode"]["launches"].values()):
+        fail(f"capture {RG_ARCH} decode on {shape}: kernel nodes {d['kernel_launch_nodes']}, "
+             f"phase 8's sharded decode launched {run['decode']['launches']}: want none")
 
 
 def check_decode_captures(by_key):
@@ -3816,6 +3902,9 @@ def main(argv=None):
     ssd_bwd["train"] = {k: v for k, v in ssm_train.items() if k != "launches"}
     scan["launches_by_path"] = {f"serve {RG_ARCH}": by_arch[RG_ARCH]["launches"]["rglru_scan"],
                                 f"train {RG_ARCH}": rg_train["launches"]["rglru_scan"]}
+    for path, r in mesh_runs.items():
+        if r["launches"]["rglru_scan"]:
+            scan["launches_by_path"][path] = r["launches"]["rglru_scan"]
     scan["launches"] = sum(scan["launches_by_path"].values())
     scan_bwd["launches"] = rg_train["launches"]["rglru_scan_bwd"]
     scan_bwd["launches_by_path"] = {f"train {RG_ARCH}": scan_bwd["launches"]}

@@ -193,21 +193,30 @@ def distribute(full, mesh, pl) -> DTensor:
 # what runs under a mesh in this slice
 # ---------------------------------------------------------------------------
 
-# the layers that cannot run under a mesh yet
-_LAYERS_WAITING = {SSD: "SSD", RGLRU: "RG-LRU", CROSS_ATTN: "cross-attention",
-                   ENC_ATTN: "encoder"}
+# the layers that cannot run under a mesh yet, and those that serve under
+# one but do not train under one yet
+_LAYERS_WAITING = {SSD: "SSD", CROSS_ATTN: "cross-attention", ENC_ATTN: "encoder"}
+_TRAIN_WAITING = {RGLRU: "RG-LRU"}
 
 
-def check_mesh_support(cfg) -> None:
+def check_mesh_support(cfg, train: bool = False) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for an arch this
-    slice does not run under a mesh: one with an SSD, RG-LRU, cross or
-    encoder layer (the dense and MoE archs serve and train under one)."""
+    slice does not run under a mesh: one with an SSD, cross or encoder
+    layer, and with ``train`` one with RG-LRU layers too (they serve under a
+    mesh; their train step waits). The dense and MoE archs serve and train
+    under one."""
     kinds = set(cfg.layer_kinds) | ({ENC_ATTN} if cfg.is_encdec else set())
+    item = "(ROADMAP queue 1, item 5.3: the RG-LRU train step, SSD and cross/enc archs " \
+           "under a mesh)"
     names = [name for kind, name in _LAYERS_WAITING.items() if kind in kinds]
     if names:
         raise NotImplementedError(
-            f"{cfg.name}: its {', '.join(names)} layers do not run under a mesh yet "
-            f"(ROADMAP queue 1, item 5.3: the SSD, RG-LRU and cross/enc archs under a mesh)")
+            f"{cfg.name}: its {', '.join(names)} layers do not run under a mesh yet {item}")
+    names = [name for kind, name in _TRAIN_WAITING.items() if kind in kinds]
+    if train and names:
+        raise NotImplementedError(
+            f"{cfg.name}: its {', '.join(names)} layers serve under a mesh, but its train "
+            f"step does not run under one yet {item}")
 
 
 # ---------------------------------------------------------------------------

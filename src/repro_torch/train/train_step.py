@@ -57,15 +57,15 @@ def moe_groups(parallel: ParallelConfig, mesh=None) -> int:
     return groups
 
 
-def under_mesh(fn, model: Model, mesh):
+def under_mesh(fn, model: Model, mesh, train: bool = False):
     """``fn`` as it runs with a model sharded over ``mesh``: the arch
-    checked (``check_mesh_support``), and the call
+    checked for the step's kind (``check_mesh_support``), and the call
     inside ``implicit_replication``, where a plain tensor that meets a
     DTensor counts as replicated. ``fn`` itself without a mesh."""
     if mesh is None:
         return fn
     from torch.distributed.tensor.experimental import implicit_replication
-    sharding.check_mesh_support(model.cfg)
+    sharding.check_mesh_support(model.cfg, train)
 
     @functools.wraps(fn)
     def step(*args, **kwargs):
@@ -155,7 +155,7 @@ def make_train_step(model: Model, opt_cfg: OptConfig, parallel: ParallelConfig,
         metrics["loss"] = loss
         return TrainState(params, new_opt, state.err), metrics
 
-    return under_mesh(train_step, model, mesh)
+    return under_mesh(train_step, model, mesh, train=True)
 
 
 def make_eval_step(model: Model, parallel: ParallelConfig, mesh=None):

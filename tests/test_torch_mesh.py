@@ -24,9 +24,9 @@ Held here:
   * ``fake_process_group`` leaves no default group behind;
   * the archs outside the slice raise NotImplementedError naming their
     ROADMAP item under a mesh, for every step maker, the train and decode
-    steps' among them, and the MoE archs for the train step alone (they
-    serve under a mesh: tests/test_torch_mesh_moe*.py); the train and decode
-    steps build for the dense archs
+    steps' among them, and recurrentgemma-9b for the train step alone (it
+    serves under a mesh: tests/test_torch_mesh_rglru*.py); the train and
+    decode steps build for the dense and MoE archs
     (tests/test_torch_mesh_train.py and tests/test_torch_mesh_decode*.py
     hold what they compute); without a mesh every Ctx has no hook.
 
@@ -331,8 +331,10 @@ def test_axis_sizes_take_a_mapping_or_none():
 # a mesh stand-in: the axis sizes a step maker reads (the MoE dispatch
 # groups of its Ctx); every refusal below comes before the mesh is used
 MESH_STANDIN = {"data": 2, "model": 4}
-WAITING = {"mamba2-780m": "SSD", "recurrentgemma-9b": "RG-LRU", "llama-3.2-vision-90b": "cross",
+WAITING = {"mamba2-780m": "SSD", "llama-3.2-vision-90b": "cross",
            "seamless-m4t-medium": "encoder"}
+# serve under a mesh, but their train step waits
+TRAIN_WAITING = {"recurrentgemma-9b": "RG-LRU"}
 # the MoE archs serve and train under a mesh
 MOE_ARCHS = ("mixtral-8x7b", "dbrx-132b")
 
@@ -347,23 +349,29 @@ def test_archs_outside_the_slice_raise_under_a_mesh(arch):
               lambda: train_step.make_eval_step(model, ParallelConfig(), MESH_STANDIN),
               lambda: train_step.make_train_step(model, OptConfig(), ParallelConfig(),
                                                  MESH_STANDIN))
-    for make in makers:
-        if arch in WAITING:
+    for i, make in enumerate(makers):
+        if arch in WAITING or (arch in TRAIN_WAITING and i == len(makers) - 1):
             with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 5\.3"):
                 make()
         else:
             assert callable(make())
     if arch in WAITING:
-        with pytest.raises(NotImplementedError, match=WAITING[arch]):
-            sharding.check_mesh_support(cfg)
-    else:
+        for train in (False, True):
+            with pytest.raises(NotImplementedError, match=WAITING[arch]):
+                sharding.check_mesh_support(cfg, train)
+    elif arch in TRAIN_WAITING:
         sharding.check_mesh_support(cfg)
+        with pytest.raises(NotImplementedError, match=TRAIN_WAITING[arch] + " .*train step"):
+            sharding.check_mesh_support(cfg, train=True)
+    else:
+        sharding.check_mesh_support(cfg, train=True)
         assert (arch in MOE_ARCHS) == bool(cfg.num_experts)
 
 
 def test_decode_and_train_steps_raise_under_a_mesh():
     """The decode and train steps build under a mesh for a dense and an MoE
-    arch; the decode step raises for an SSD arch, naming the item that
+    arch; the decode step builds for the RG-LRU arch and its train step
+    raises; the decode step raises for an SSD arch, naming the item that
     waits."""
     model = Model(get_config("qwen3-8b", smoke=True), device="cpu", trainable=True)
     assert callable(serve_step.make_decode_step(model, mesh=MESH_STANDIN))
@@ -374,6 +382,12 @@ def test_decode_and_train_steps_raise_under_a_mesh():
     ssm = Model(get_config("mamba2-780m", smoke=True), device="cpu", trainable=True)
     with pytest.raises(NotImplementedError, match=r"SSD .*item 5\.3"):
         serve_step.make_decode_step(ssm, mesh=MESH_STANDIN)
+    rg = Model(get_config("recurrentgemma-9b", smoke=True), device="cpu", trainable=True)
+    assert callable(serve_step.make_decode_step(rg, mesh=MESH_STANDIN))
+    assert callable(serve_step.make_decode_step(rg, parallel=ParallelConfig(
+        seq_shard_cache=True), mesh=MESH_STANDIN))
+    with pytest.raises(NotImplementedError, match=r"RG-LRU .*item 5\.3"):
+        train_step.make_train_step(rg, OptConfig(), ParallelConfig(), MESH_STANDIN)
     moe = Model(get_config("mixtral-8x7b", smoke=True), device="cpu", trainable=True)
     assert callable(serve_step.make_decode_step(moe, mesh=MESH_STANDIN))
     assert callable(train_step.make_train_step(moe, OptConfig(), ParallelConfig(),

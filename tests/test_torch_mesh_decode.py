@@ -31,8 +31,11 @@ Rules:
   * layer 0's placements against the JAX cache spec (layers dropped where
     stacked).
 
-Everything runs in subprocesses, four at once (one an arch): a process
-group, LocalTensorMode and JAX's fake devices are global to a process.
+Everything runs in subprocesses, one an arch, the two archs of a half
+(``PARTS``) at once: a process group, LocalTensorMode and JAX's fake
+devices are global to a process. This file holds gemma3-4b and qwen3-8b;
+tests/test_torch_mesh_decode_2.py holds granite-3-8b and gemma3-12b by the
+same tests, so that pytest-xdist's workers take the two halves in parallel.
 """
 import json
 import math
@@ -49,6 +52,8 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ARCHS = ("gemma3-4b", "qwen3-8b", "granite-3-8b", "gemma3-12b")
+# the halves of ARCHS whose processes run together, each in a file of its own
+PARTS = (ARCHS[:2], ARCHS[2:])
 MESHES = ((2, 4), (4, 2))
 BF16_ATOL = 4e-3            # a bf16 cache value one ulp apart (module docstring)
 
@@ -193,10 +198,10 @@ def _run(code, *args, devices=None):
                             stderr=subprocess.PIPE, text=True, env=env)
 
 
-def run_all(rule):
-    """{arch: {mesh key: results}} of PARITY under ``rule``, the four
-    archs' processes started together."""
-    procs = {a: _run(PARITY, a, rule, devices=8) for a in ARCHS}
+def run_all(rule, archs=ARCHS):
+    """{arch: {mesh key: results}} of PARITY under ``rule``, the processes
+    of ``archs`` started together."""
+    procs = {a: _run(PARITY, a, rule, devices=8) for a in archs}
     out = {}
     for a, proc in procs.items():
         stdout, err = proc.communicate(timeout=900)
@@ -211,12 +216,18 @@ def within_one_bf16_ulp(cache):
     return all(e <= 2.0 ** (math.floor(math.log2(top)) - 7) for e, top in cache)
 
 
+def part_of(arch):
+    return next(p for p in PARTS if arch in p)
+
+
 _results = {}
 
 
 def result(arch, mesh):
-    if not _results:
-        _results.update(run_all("default"))
+    """PARITY's results of ``arch`` under the default rules; the processes
+    of its half start together at its first call."""
+    if arch not in _results:
+        _results.update(run_all("default", part_of(arch)))
     return _results[arch]["x".join(map(str, mesh))]
 
 
@@ -224,7 +235,7 @@ IDS = {"ids": lambda m: "x".join(map(str, m))}
 
 
 @pytest.mark.parametrize("mesh", MESHES, **IDS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PARTS[0])
 def test_sharded_decode_logits_match_the_jax_sharded_decode(arch, mesh):
     r = result(arch, mesh)
     assert r["shape"] == [4, 512] and r["finite"], r
@@ -235,7 +246,7 @@ def test_sharded_decode_logits_match_the_jax_sharded_decode(arch, mesh):
 
 
 @pytest.mark.parametrize("mesh", MESHES, **IDS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PARTS[0])
 def test_each_layer_cache_matches_the_jax_sharded_cache_within_one_bf16_ulp(arch, mesh):
     r = result(arch, mesh)
     print(arch, mesh, "k/v errors and max of each layer", r["cache"])
@@ -244,7 +255,7 @@ def test_each_layer_cache_matches_the_jax_sharded_cache_within_one_bf16_ulp(arch
 
 
 @pytest.mark.parametrize("mesh", MESHES, **IDS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PARTS[0])
 def test_cache_is_placed_by_batch_and_kv_heads_as_the_jax_spec(arch, mesh):
     """Batch over data; the 2 kv heads over the model axis on (4, 2), whole
     on (2, 4), where they do not divide it."""

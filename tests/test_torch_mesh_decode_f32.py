@@ -19,8 +19,12 @@ under the default rules and under ``seq_shard_cache``:
   * under the default rules on (2, 4), ``generate`` under the mesh gives the
     unsharded greedy tokens.
 
-Eight subprocesses at once (one an arch and a rule): a process group and
-LocalTensorMode are global to a process.
+One subprocess an arch and a rule, the four of a half of the archs
+(``PARTS``) at once: a process group and LocalTensorMode are global to a
+process. This file holds gemma3-4b and qwen3-8b;
+tests/test_torch_mesh_decode_f32_2.py holds granite-3-8b and gemma3-12b by
+the same tests, so that pytest-xdist's workers take the two halves in
+parallel.
 """
 import json
 import os
@@ -34,6 +38,7 @@ torch = pytest.importorskip("torch")
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ARCHS = ("gemma3-4b", "qwen3-8b", "granite-3-8b", "gemma3-12b")
+PARTS = (ARCHS[:2], ARCHS[2:])         # the halves whose processes run together
 MESHES = ((2, 4), (4, 2))
 RULES = ("default", "seq_shard_cache")
 F32_ATOL = 5e-5
@@ -118,10 +123,11 @@ _results = {}
 
 
 def result(arch, rule, mesh):
-    """The results of ``arch`` under ``rule`` on ``mesh``; the eight
-    processes start together at the first call."""
-    if not _results:
-        procs = {(a, r): _run(a, r) for a in ARCHS for r in RULES}
+    """The results of ``arch`` under ``rule`` on ``mesh``; the processes of
+    its half of the archs start together at its first call."""
+    if (arch, rule) not in _results:
+        part = next(p for p in PARTS if arch in p)
+        procs = {(a, r): _run(a, r) for a in part for r in RULES}
         for key, proc in procs.items():
             out, err = proc.communicate(timeout=900)
             assert proc.returncode == 0, err[-4000:]
@@ -131,7 +137,7 @@ def result(arch, rule, mesh):
 
 @pytest.mark.parametrize("rule", RULES)
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: "x".join(map(str, m)))
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PARTS[0])
 def test_sharded_decode_matches_the_unsharded_decode_with_an_f32_cache(arch, mesh, rule):
     r = result(arch, rule, mesh)
     print(arch, mesh, rule, "max |logit| error over 6 steps from the prefill", r["prefill"],
@@ -142,7 +148,7 @@ def test_sharded_decode_matches_the_unsharded_decode_with_an_f32_cache(arch, mes
 
 @pytest.mark.parametrize("rule", RULES)
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: "x".join(map(str, m)))
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PARTS[0])
 def test_sharded_init_cache_is_placed_as_the_prefill_cache(arch, mesh, rule):
     """Each rank made its shard only, placed by the cache rules: after a
     step, where the placements would show a redistribute, they are the
@@ -154,7 +160,7 @@ def test_sharded_init_cache_is_placed_as_the_prefill_cache(arch, mesh, rule):
     assert r["pos"] == 2
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PARTS[0])
 def test_generate_under_a_mesh_gives_the_unsharded_greedy_tokens(arch):
     got, want = result(arch, "default", (2, 4))["generate"]
     assert got == want and len(want[0]) == 3

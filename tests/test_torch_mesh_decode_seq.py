@@ -25,13 +25,17 @@ Rules:
     and so its later keys) within one bf16 ulp of its max |k|;
   * layer 0's placements against the JAX cache spec: the length over data,
     the kv heads over model where they divide it.
+This file holds gemma3-4b and qwen3-8b, the first of
+tests/test_torch_mesh_decode.py's halves (``PARTS``), their processes
+started together; tests/test_torch_mesh_decode_seq_2.py holds the other
+half by the same tests.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_mesh_decode import (ARCHS, BF16_ATOL, IDS, MESHES,  # noqa: E402
-                                    run_all, within_one_bf16_ulp)
+from test_torch_mesh_decode import (BF16_ATOL, IDS, MESHES, PARTS,  # noqa: E402
+                                    part_of, run_all, within_one_bf16_ulp)
 
 SPREAD_RTOL = 0.025          # of max |logit|: the JAX sharded decode's spread
 
@@ -39,13 +43,13 @@ _results = {}
 
 
 def result(arch, mesh):
-    if not _results:
-        _results.update(run_all("seq_shard_cache"))
+    if arch not in _results:
+        _results.update(run_all("seq_shard_cache", part_of(arch)))
     return _results[arch]["x".join(map(str, mesh))]
 
 
 @pytest.mark.parametrize("mesh", MESHES, **IDS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PARTS[0])
 def test_length_sharded_decode_matches_the_jax_unsharded_decode(arch, mesh):
     r = result(arch, mesh)
     assert r["shape"] == [4, 512] and r["finite"], r
@@ -55,7 +59,7 @@ def test_length_sharded_decode_matches_the_jax_unsharded_decode(arch, mesh):
 
 
 @pytest.mark.parametrize("mesh", MESHES, **IDS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PARTS[0])
 def test_length_sharded_decode_is_within_the_jax_sharded_spread(arch, mesh):
     r = result(arch, mesh)
     print(arch, mesh, "against the JAX sharded decode", r["sharded"], "; the JAX sharded "
@@ -66,7 +70,7 @@ def test_length_sharded_decode_is_within_the_jax_sharded_spread(arch, mesh):
 
 
 @pytest.mark.parametrize("mesh", MESHES, **IDS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PARTS[0])
 def test_each_layer_cache_matches_the_jax_unsharded_cache_within_one_bf16_ulp(arch, mesh):
     r = result(arch, mesh)
     print(arch, mesh, "k/v errors and max of each layer", r["cache"])
@@ -74,7 +78,7 @@ def test_each_layer_cache_matches_the_jax_unsharded_cache_within_one_bf16_ulp(ar
 
 
 @pytest.mark.parametrize("mesh", MESHES, **IDS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PARTS[0])
 def test_cache_length_is_placed_over_data_as_the_jax_spec(arch, mesh):
     r = result(arch, mesh)
     want = [None, "data", "model"] if mesh == (4, 2) else [None, "data"]

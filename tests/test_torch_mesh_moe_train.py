@@ -40,7 +40,9 @@ recompute of each layer routes bit for bit as its forward.
 Every case runs in a subprocess (the default process group and JAX's fake
 devices are global to a process); the JAX and port processes of every run
 list start together at the first test and write the gradients and
-routings to files.
+routings to files. This file holds mixtral-8x7b's runs (with the remat
+runs); tests/test_torch_mesh_moe_train_2.py holds dbrx-132b's by the same
+tests, so that pytest-xdist's workers take the two halves in parallel.
 """
 import json
 import os
@@ -74,7 +76,15 @@ PROCS = [("mixtral-8x7b", [["2x4", [2, 4], {}, 4, 3], ["4x2", [4, 2], {}, 4, 1]]
                         ["2x4/zero3", [2, 4], {"model_axis": "zero3"}, 8, 3]])]
 STEPS = {(arch, r[0]): r[4] for arch, runs in PROCS for r in runs}
 MICRO = {(arch, r[0]): r[2].get("microbatches", 1) for arch, runs in PROCS for r in runs}
-KEYS = list(STEPS)
+# this file's run lists
+JOBS = [p for p in PROCS if p[0] == "mixtral-8x7b"]
+
+
+def keys_of(jobs):
+    return [(arch, r[0]) for arch, runs in jobs for r in runs]
+
+
+KEYS = keys_of(JOBS)
 
 COMMON = textwrap.dedent("""
     import json, sys, time
@@ -341,14 +351,13 @@ def _run(code, args, devices=None):
                             stderr=subprocess.PIPE, text=True, env=env)
 
 
-@pytest.fixture(scope="module")
-def results(tmp_path_factory):
+def run_results(tmp_path_factory, jobs):
     """{(arch, key): (JAX result, port result, JAX grads, port grads, JAX
     routes, port routes)}: a JAX and a port process for each run list of
-    PROCS, all started together."""
+    ``jobs``, all started together."""
     out_dir = str(tmp_path_factory.mktemp("mesh_moe_train"))
     procs = []
-    for arch, runs in PROCS:
+    for arch, runs in jobs:
         args = [arch, out_dir, json.dumps(runs)]
         procs.append(("jax", arch, _run(JAX_STEP, args, devices=8)))
         remat = [REMAT_MESH] if arch == REMAT_ARCH and runs[0][0] == REMAT_MESH else []
@@ -366,6 +375,11 @@ def results(tmp_path_factory):
         res[arch, key] = (r["jax"], r["port"], *(torch.load(f, weights_only=False)
                                                  for f in files))
     return res
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    return run_results(tmp_path_factory, JOBS)
 
 
 def _ids(k):

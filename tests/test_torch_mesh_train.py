@@ -32,7 +32,11 @@ about lr * sign(g)).
 
 Every case runs in a subprocess (the default process group and JAX's fake
 devices are global to a process); the JAX and port processes of every arch
-start together at the first test and write the gradients to files.
+start together at the first test and write the gradients to files. This
+file holds gemma3-4b and granite-3-8b (with the remat runs);
+tests/test_torch_mesh_train_2.py holds qwen3-8b (with its zero3 and
+microbatched runs) and gemma3-12b, by the same tests, so that pytest-xdist's
+workers take the two halves in parallel.
 """
 import json
 import os
@@ -59,7 +63,15 @@ RUNS = {arch: [["2x4", [2, 4], {}, 4, 3], ["4x2", [4, 2], {}, 4, 1]] for arch in
 EXTRA = ("qwen3-8b", [["2x4/zero3", [2, 4], {"model_axis": "zero3"}, 8, 3],
                       ["2x4/mb2", [2, 4], {"microbatches": 2}, 8, 1]])
 STEPS = {(arch, r[0]): r[4] for arch, runs in [*RUNS.items(), EXTRA] for r in runs}
-KEYS = [(arch, r[0]) for arch in ARCHS for r in RUNS[arch]] + [(EXTRA[0], r[0]) for r in EXTRA[1]]
+# this file's (arch, runs) process pairs
+JOBS = [(arch, RUNS[arch]) for arch in ("gemma3-4b", "granite-3-8b")]
+
+
+def keys_of(jobs):
+    return [(arch, r[0]) for arch, runs in jobs for r in runs]
+
+
+KEYS = keys_of(JOBS)
 
 COMMON = textwrap.dedent("""
     import json, sys
@@ -245,14 +257,13 @@ def _run(code, args, devices=None):
 _cache = {}
 
 
-@pytest.fixture(scope="module")
-def results(tmp_path_factory):
-    """{(arch, key): (JAX result, port result, JAX grads, port grads)}: ten
-    processes, a JAX one and a port one for each arch and for qwen3-8b's
-    zero3 and microbatched runs, started together."""
+def run_results(tmp_path_factory, jobs):
+    """{(arch, key): (JAX result, port result, JAX grads, port grads)}: a JAX
+    process and a port process for each (arch, runs) of ``jobs``, started
+    together."""
     out_dir = str(tmp_path_factory.mktemp("mesh_train"))
     procs = []
-    for arch, runs in [*RUNS.items(), EXTRA]:
+    for arch, runs in jobs:
         args = [arch, out_dir, json.dumps(runs)]
         procs.append(("jax", arch, _run(textwrap.dedent(JAX_STEP), args, devices=8)))
         remat = [REMAT_MESH] if arch == REMAT_ARCH and runs is RUNS[arch] else []
@@ -269,6 +280,11 @@ def results(tmp_path_factory):
                  for side in ("jax", "port")]
         res[arch, key] = (r["jax"], r["port"], *(torch.load(f) for f in files))
     return res
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    return run_results(tmp_path_factory, JOBS)
 
 
 def _ids(k):

@@ -348,11 +348,17 @@ B, S = 4, 16
 #    gemma3-4b's 4 layers on both meshes, the port's K1 at 32,768 a layer on
 #    (2, 4) and (4, 2) (its rank's 2 x 1 or 1 x 2 (batch, head) pairs of 16
 #    x 16 queries and keys).
+#  * recurrentgemma-9b (tests/test_torch_mesh_rglru_capture.py): its RG-LRU
+#    layers match exactly; its local layer's blocked attention takes 262,144
+#    FLOPs a device against K1's 32,768, and its projections (one kv head)
+#    49,152 more on (2, 4) and 16,384 more on (4, 2).
 MESH_GAPS = {
     ("gemma3-4b", (2, 4)): (1_081_344, 393_216), ("gemma3-4b", (4, 2)): (688_128, 0),
     ("qwen3-8b", (2, 4)): (294_912, 294_912), ("qwen3-8b", (4, 2)): (0, 0),
     ("granite-3-8b", (2, 4)): (294_912, 294_912), ("granite-3-8b", (4, 2)): (0, 0),
     ("gemma3-12b", (2, 4)): (1_507_328, 589_824), ("gemma3-12b", (4, 2)): (917_504, 0),
+    ("recurrentgemma-9b", (2, 4)): (278_528, 49_152),
+    ("recurrentgemma-9b", (4, 2)): (245_760, 16_384),
 }
 
 JAX_CAPTURE = textwrap.dedent("""
